@@ -13,7 +13,13 @@ Phases, one line each (plus details):
    versions at the main path's shapes (4,096 sources against 32,768
    targets, window 4,096; K2 also 3 lanes at once and a masked tail):
    indices and distances must be exactly equal, K1's matched rows bit-exact
-   to the gathered rows; kernel and plain times from CUDA events;
+   to the gathered rows and its in-kernel window starts equal to the plain
+   glue's; then the designs' edges (a ragged source count, a tile of
+   sentinel rows, one lane, a ragged target count, equal targets on both
+   sides of a split boundary, prepare/query against the single call). The
+   kernel times are device times (a CUDA graph of launches between two
+   events), the plain and whole-call times CUDA-event loops; each kernel's
+   bound is computed from the card's SM count and clock;
 4. the engine: the full-size fast-mode config (32,768-point clouds, a
    4,608-frame keyframe DB, 8192^2 grid) on a 500-frame corridor route whose
    last eighth revisits the start, through ``SlamEngine.preload ->
@@ -39,6 +45,8 @@ N_FRAMES = 500
 RAW_POINTS = 65536
 N_POINTS = 32768  # the slice config's max_points
 VOXEL = 0.5
+# K1: target and source scans; K2: three lanes' targets
+KERNEL_FRAMES = (10, 11, 20, N_FRAMES // 2, N_FRAMES - 20)
 
 
 def log(msg: str) -> None:
@@ -80,6 +88,59 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean device ms per call of ``fn`` (kernel launches and allocations
+    only): ``reps`` calls captured in a CUDA graph and replayed, so the
+    host's launch cost does not hide a kernel of a few microseconds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def card_rates(dev) -> dict:
+    """What the bounds are computed from: SM count, the card's maximum SM
+    clock, and the data-sheet memory rate of an H100 SXM."""
+    import torch
+
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(r.returncode == 0, "nvidia-smi did not give the SM clock")
+    mhz = float(r.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {
+        "sms": sms, "sm_clock_mhz": mhz,
+        # FP32 instructions a second without FMA: SMs x 128 lanes x clock
+        "fp32_instr_per_s": sms * 128 * mhz * 1e6,
+        "hbm_bytes_per_s": 3.35e12,
+    }
+
+
+def bound_ms(evaluations: int, n_bytes: int, rates: dict) -> tuple[float, str]:
+    """The least time the card could take: 8 FP32 instructions (3 sub, 3 mul,
+    2 add; the exact-equality contract forbids FMA) per distance evaluation
+    at the instruction rate, against the bytes once over the memory rate."""
+    t_ops = 8 * evaluations / rates["fp32_instr_per_s"] * 1e3
+    t_bytes = n_bytes / rates["hbm_bytes_per_s"] * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def prepare_route():
     """The 500-frame corridor route, rendered and host-voxelized."""
     import numpy as np
@@ -106,8 +167,13 @@ def prepare_route():
     return scans, gt
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def check_kernels(scans, dev):
-    """K1 and K2 against their plain versions at main-path shapes."""
+    """K1 and K2 against their plain versions at main-path shapes, and at
+    the edges of their designs; uses the scans of ``KERNEL_FRAMES``."""
     import numpy as np
     import torch
 
@@ -116,6 +182,12 @@ def check_kernels(scans, dev):
     from lidar_slam_tpu_torch.types import PointCloud
 
     N = N_POINTS
+    rates = card_rates(dev)
+    log(f"[bound] {rates['sms']} SMs x 128 FP32 lanes x "
+        f"{rates['sm_clock_mhz']:.0f} MHz = "
+        f"{rates['fp32_instr_per_s'] / 1e12:.3f} T FP32 instructions/s (no "
+        f"FMA: 8 per distance evaluation); memory "
+        f"{rates['hbm_bytes_per_s'] / 1e12:.2f} TB/s (data sheet)")
 
     def cloud(i):
         pts = np.zeros((N, 3), np.float32)
@@ -123,8 +195,14 @@ def check_kernels(scans, dev):
         return (torch.from_numpy(pts).to(dev),
                 torch.from_numpy(np.arange(N) < len(scans[i])).to(dev))
 
-    tgt, tmask = cloud(10)
-    src_pts, src_mask = cloud(11)
+    def same(a, b, what):
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            check(x.shape == y.shape and torch.equal(x, y), what)
+
+    frames = KERNEL_FRAMES
+    tgt, tmask = cloud(frames[0])
+    src_pts, src_mask = cloud(frames[1])
     nrm = estimate_normals_adaptive(tgt, tmask, r_min=1.2, window=4096,
                                     probe_stride=2)
     # the odometry ICP's source: sentinel-displaced, strided to 4,096 rows
@@ -149,49 +227,104 @@ def check_kernels(scans, dev):
     err1 = max(float((d_k - d_p).abs().max()), float((q_k - q_p).abs().max()),
                float((n_k - n_p).abs().max()))
     index = knn_cuda._build_slab_index(tgt, tmask, nrm)
-    starts = knn_cuda._slab_starts_lut(src, index, 256, 4096, 3.0)
-    ms1 = time_ms(lambda: knn_cuda._match_slab_cuda(src, index.tgt8, starts,
-                                                    256, 4096))
-    pms1 = time_ms(lambda: knn_cuda._match_slab_plain(src, index.tgt8, starts,
-                                                      256, 4096))
-    log(f"[kernels] K1 match_slab S=4096 T=32768 window=4096: exact "
-        f"(idx, d2, rows); kernel {ms1:.4f} ms, plain {pms1:.4f} ms")
+
+    def k1_both(s, ts=256, window=4096):
+        return (knn_cuda._slab_query(s, index, ts, window, 3.0),
+                knn_cuda._slab_query(s, index, ts, window, 3.0,
+                                     knn_cuda._slab_query_plain))
+
+    out_k, out_p = k1_both(src)
+    same(out_k, out_p, "K1 query (qn, d2, idx, starts) differs from plain")
+    check(torch.equal(out_k[3], knn_cuda._slab_starts_lut(
+        src, index, 256, 4096, 3.0)),
+        "K1's in-kernel window starts differ from _slab_starts_lut")
+    # edges: a source count that is no multiple of the tile; a tile whose
+    # rows are all sentinel (invalid source rows sort to the end)
+    same(*k1_both(src[:3901]), "K1 with a ragged source count differs")
+    src_s = src.clone()
+    src_s[-300:] = 1.0e6
+    out_k, out_p = k1_both(src_s)
+    same(out_k, out_p, "K1 with an all-sentinel tile differs")
+    err1 = max(err1, float((out_k[1] - out_p[1]).abs().max()))
+    ms1 = time_graph_ms(
+        lambda: knn_cuda._slab_query_cuda(src, index, 256, 4096, 3.0))
+    pms1 = time_ms(
+        lambda: knn_cuda._slab_query_plain(src, index, 256, 4096, 3.0))
+    k1_call = knn_cuda.SlabBackend().prepare_match(tgt, tmask, nrm)
+    call1 = time_ms(lambda: k1_call(src), reps=200)
+    b1, by1 = bound_ms(
+        4096 * 4096,
+        _nbytes(src, index.tgt8, index.lut, *out_k), rates)
+    log(f"[kernels] K1 match_slab S=4096 T=32768 window=4096: exact (idx, "
+        f"d2, rows, starts; ragged S; sentinel tile); kernel {ms1:.4f} ms, "
+        f"bound {b1:.4f} ms ({by1}), plain {pms1:.4f} ms; whole call "
+        f"(prepare_match's query, host included) {call1:.4f} ms")
     results.append(dict(
         name="match_slab", route="cuda",
         source="lidar_slam_tpu_torch/csrc/knn.cu",
         replaces=knn_cuda.MATCH_SLAB.replaces, max_abs_err=err1,
-        ms=ms1, plain_ms=pms1,
+        ms=ms1, plain_ms=pms1, bound_ms=b1, bound_by=by1, library_ms=None,
+        call_ms=call1,
     ))
 
     # K2: 3 lanes in one launch, each 4,096 sources vs 32,768 targets ---------
-    lanes = [cloud(i) for i in (20, N_FRAMES // 2, N_FRAMES - 20)]
+    lanes = [cloud(i) for i in frames[2:5]]
     t3 = torch.stack([c[0] for c in lanes])
     m3 = torch.stack([c[1] for c in lanes])
     s3 = src[None].expand(3, -1, -1).contiguous()
-    i_k, d_k = knn_cuda.nn1(s3, t3, m3)
-    i_p, d_p = knn_cuda.nn1_torch(s3, t3, m3)
-    torch.cuda.synchronize()
-    check(torch.equal(i_k, i_p) and torch.equal(d_k, d_p),
-          "K2 (3 lanes) differs from the plain version")
-    err2 = float((d_k - d_p).abs().max())
+
+    def k2_same(s, t, m, what):
+        got, want = knn_cuda.nn1(s, t, m), knn_cuda.nn1_torch(s, t, m)
+        same(got, want, what)
+        return float((got[1] - want[1]).abs().max()), got[0]
+
+    err2, _ = k2_same(s3, t3, m3, "K2 (3 lanes) differs from the plain version")
     # masked tail: the last 40% of the targets invalid
     m_tail = tmask.clone()
     m_tail[int(0.6 * N):] = False
-    i_k, d_k = knn_cuda.nn1(src, tgt, m_tail)
-    i_p, d_p = knn_cuda.nn1_torch(src, tgt, m_tail)
-    torch.cuda.synchronize()
-    check(torch.equal(i_k, i_p) and torch.equal(d_k, d_p),
-          "K2 (masked tail) differs from the plain version")
+    e, i_k = k2_same(src, tgt, m_tail, "K2 (masked tail) differs from plain")
     check(int(i_k.max()) < int(0.6 * N), "K2 picked a masked target")
-    err2 = max(err2, float((d_k - d_p).abs().max()))
-    ms2 = time_ms(lambda: knn_cuda.nn1(s3, t3, m3), reps=10)
+    err2 = max(err2, e)
+    # edges: one lane; a target count that is no multiple of the tile or of 4
+    e, _ = k2_same(s3[:1], t3[:1], m3[:1], "K2 (1 lane) differs from plain")
+    err2 = max(err2, e)
+    e, _ = k2_same(s3[:2, :777], t3[:2, :30001], m3[:2, :30001],
+                   "K2 (ragged S and T) differs from plain")
+    err2 = max(err2, e)
+    # a forced tie: equal target rows on both sides of group, tile and split
+    # boundaries; a source on the point itself must get the lower index
+    t_tie, s_tie = t3[:1].clone(), s3[:1].clone()
+    m_tie = torch.ones_like(m3[:1])
+    bounds = [16, 512, 1024, 2048, 4096, 16384, N - 1]
+    for r, b in enumerate(bounds):
+        t_tie[0, b - 1] = torch.tensor([500.0 + r, -500.0, 250.0], device=dev)
+        t_tie[0, b] = t_tie[0, b - 1]
+        t_tie[0, (b + 9000) % N] = t_tie[0, b - 1]
+        s_tie[0, r] = t_tie[0, b - 1]
+    e, i_k = k2_same(s_tie, t_tie, m_tie, "K2 (forced ties) differs from plain")
+    for r, b in enumerate(bounds):
+        check(int(i_k[0, r]) == min(b - 1, (b + 9000) % N),
+              f"K2 did not keep the first index of a tie at boundary {b}")
+    err2 = max(err2, e)
+    # one layout, several queries
+    query = knn_cuda.nn1.prepare(t3, m3)
+    for shift in (0.0, 0.25):
+        same(query(s3 + shift), knn_cuda.nn1_torch(s3 + shift, t3, m3),
+             "K2 prepare/query differs from the plain version")
+    ms2 = time_graph_ms(lambda: query(s3), reps=10)
+    call2 = time_ms(lambda: knn_cuda.nn1(s3, t3, m3), reps=20)
     pms2 = time_ms(lambda: knn_cuda.nn1_torch(s3, t3, m3), reps=3)
-    log(f"[kernels] K2 nn1 3 lanes x S=4096 x T=32768 + masked tail: exact "
-        f"(idx, d2); kernel {ms2:.4f} ms, plain {pms2:.4f} ms")
+    i_k, d_k = query(s3)
+    b2, by2 = bound_ms(3 * 4096 * N, _nbytes(s3, t3, m3, i_k, d_k), rates)
+    log(f"[kernels] K2 nn1 3 lanes x S=4096 x T=32768: exact (idx, d2; masked "
+        f"tail; 1 lane; ragged S, T; ties at split boundaries; "
+        f"prepare/query); kernel {ms2:.4f} ms, bound {b2:.4f} ms ({by2}), "
+        f"plain {pms2:.4f} ms; single call with layout {call2:.4f} ms")
     results.append(dict(
         name="nn1", route="cuda", source="lidar_slam_tpu_torch/csrc/knn.cu",
         replaces=knn_cuda.NN1.replaces, max_abs_err=err2,
-        ms=ms2, plain_ms=pms2,
+        ms=ms2, plain_ms=pms2, bound_ms=b2, bound_by=by2, library_ms=None,
+        call_ms=call2,
     ))
     return results
 

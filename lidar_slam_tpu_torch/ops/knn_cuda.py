@@ -18,10 +18,17 @@ into ``build/kernels/`` (keyed on a hash of the source) and loaded with
 ctypes. Each kernel counts its launches (``MATCH_SLAB.launches``,
 ``NN1.launches``).
 
-The window-start glue (``_build_slab_index``, ``_slab_starts_lut``,
-``_pack_tgt8``) is plain tensor code shared by both versions; its f32
-arithmetic keeps the JAX expression order so bins, and so window starts
-(and window misses), match the TPU kernel's.
+Both searches split a row's candidates over threads and blocks and merge
+the partial minima with a 64-bit key ``(bits(d2) << 32) | index`` under an
+unsigned min: the smallest d2 and, among equals, the smallest index, in any
+merge order (``tests/test_torch_knn.py`` holds the rule in plain torch).
+
+Per ICP call the target is laid out once (``_build_slab_index`` for K1,
+``nn1.prepare`` for K2); per iteration a query on a CUDA tensor is one
+kernel launch. K1's kernel computes its own window starts; the plain
+version's glue (``_pad_rows``, ``_slab_starts_lut``) is what it must equal,
+and its f32 arithmetic keeps the JAX expression order so bins, and so
+window starts (and window misses), match the TPU kernel's.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -90,9 +97,10 @@ def load_library() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lst_nn1.argtypes = [p, p, i, i, i, p, p, p]
+    lib.lst_nn1.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
     lib.lst_nn1.restype = i
-    lib.lst_match_slab.argtypes = [p, p, p, i, i, i, p, p, p, p]
+    lib.lst_match_slab.argtypes = [p, i, p, i, p, p, p, ctypes.c_float, i, i,
+                                   i, i, p, p, p, p, p, p, p]
     lib.lst_match_slab.restype = i
     _lib = lib
     return lib
@@ -158,31 +166,81 @@ def _pad_rows(x: torch.Tensor, multiple: int, value: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _nn1_cuda(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor):
-    lead = src.shape[:-2]
-    S, T = src.shape[-2], tgt.shape[-2]
-    if src.dtype != torch.float32 or tgt.dtype != torch.float32:
+_NN1_TILE = 512         # targets per shared-memory tile (NN1_TILE in knn.cu)
+_NN1_BLOCK_ROWS = 512   # source rows per block (NN1_THREADS * ROWS in knn.cu)
+_NN1_BLOCKS_PER_SM = 2  # blocks the target is split for, per SM of the card
+
+
+def _nn1_plan(lanes: int, S: int, Tp: int, sms: int) -> tuple[int, int]:
+    """``(splits, tiles per split)`` of the padded target for one K2 launch:
+    enough splits that about ``_NN1_BLOCKS_PER_SM`` blocks per SM are in
+    flight, every split holding at least one tile."""
+    n_tiles = Tp // _NN1_TILE
+    blocks = lanes * (-(-S // _NN1_BLOCK_ROWS))
+    want = -(-_NN1_BLOCKS_PER_SM * sms // max(blocks, 1))
+    tiles_per = -(-n_tiles // max(1, min(n_tiles, want)))
+    return -(-n_tiles // tiles_per), tiles_per
+
+
+def _nn1_prepare_cuda(tgt: torch.Tensor, tgt_mask: torch.Tensor):
+    lead, T = tgt.shape[:-2], tgt.shape[-2]
+    if tgt.dtype != torch.float32:
         raise ValueError("nn1 kernel takes float32 points")
-    s = src.reshape(-1, S, 3).contiguous()
-    t = mask_points(tgt, tgt_mask).reshape(-1, T, 3).contiguous()
-    if s.shape[0] != t.shape[0]:
-        raise ValueError("nn1: source and target lanes differ")
-    B = s.shape[0]
-    idx = torch.empty((B, S), dtype=torch.int32, device=s.device)
-    d2 = torch.empty((B, S), dtype=torch.float32, device=s.device)
-    _check_cuda(s, t, idx, d2)
-    NN1.launch(s.data_ptr(), t.data_ptr(), B, S, T, idx.data_ptr(),
-               d2.data_ptr(), _stream(s))
-    return idx.reshape(*lead, S), d2.reshape(*lead, S)
+    if T < 1:
+        raise ValueError("nn1 kernel takes at least one target row")
+    t = mask_points(tgt, tgt_mask).reshape(-1, T, 3)
+    B, dev = t.shape[0], t.device
+    # SoA x/y/z planes; the +inf padding to a tile multiple never wins
+    Tp = -(-T // _NN1_TILE) * _NN1_TILE
+    soa = torch.full((B, 3, Tp), float("inf"), dtype=t.dtype, device=dev)
+    soa[:, :, :T] = t.transpose(1, 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = {}  # S -> (part, tickets); the kernel leaves tickets at 0
+
+    def query(src: torch.Tensor):
+        S = src.shape[-2]
+        if src.dtype != torch.float32 or src.shape[:-2] != lead:
+            raise ValueError("nn1: float32 sources with the target's lanes")
+        s = src.reshape(-1, S, 3).contiguous()
+        n_split, tiles_per = _nn1_plan(B, S, Tp, sms)
+        if S not in scratch:
+            scratch[S] = (
+                torch.empty((B, n_split, S), dtype=torch.int64, device=dev),
+                torch.zeros((B * (-(-S // _NN1_BLOCK_ROWS)),),
+                            dtype=torch.int32, device=dev),
+            )
+        part, tickets = scratch[S]
+        idx = torch.empty((B, S), dtype=torch.int32, device=dev)
+        d2 = torch.empty((B, S), dtype=torch.float32, device=dev)
+        _check_cuda(s, part, tickets, idx, d2, aligned=(soa,))
+        NN1.launch(s.data_ptr(), soa.data_ptr(), B, S, Tp, n_split, tiles_per,
+                   part.data_ptr(), tickets.data_ptr(), idx.data_ptr(),
+                   d2.data_ptr(), _stream(s))
+        return idx.reshape(*lead, S), d2.reshape(*lead, S)
+
+    return query
+
+
+def _nn1_prepare(tgt: torch.Tensor, tgt_mask: torch.Tensor):
+    """Lay the target out once (mask to the sentinel, SoA planes) and return
+    ``query(src) -> (idx, dist2)``: on CUDA tensors every query is one K2
+    launch; on CPU tensors it is the plain version."""
+    if _is_cuda(tgt):
+        return _nn1_prepare_cuda(tgt, tgt_mask)
+    return lambda src: nn1_torch(src, tgt, tgt_mask)
 
 
 def nn1(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor):
     """Exact 1-NN (K2): ``src`` (..., S, 3), ``tgt`` (..., T, 3), ``tgt_mask``
     (..., T) -> ``(idx (..., S) int32, dist2 (..., S))``. All leading-dim
-    lanes go through one kernel launch."""
+    lanes go through one kernel launch. ``nn1.prepare(tgt, tgt_mask)`` is
+    ops/icp.py's protocol for a target that serves several queries."""
     if _is_cuda(src):
-        return _nn1_cuda(src, tgt, tgt_mask)
+        return _nn1_prepare_cuda(tgt, tgt_mask)(src)
     return nn1_torch(src, tgt, tgt_mask)
+
+
+nn1.prepare = _nn1_prepare
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +260,9 @@ class SlabIndex:
     lo: torch.Tensor    # () f32
     inv_h: torch.Tensor  # () f32
     padded_T: int
+    # the kernel's merge scratch, by (tiles, ts, chunks): per-chunk keys and
+    # the tiles' ticket counters, which the kernel leaves at 0
+    scratch: dict = field(default_factory=dict)
 
 
 def _pack_tgt8(tgt: torch.Tensor, tgt_mask: torch.Tensor,
@@ -259,41 +320,74 @@ def _match_slab_plain(src_p, tgt8, starts, ts: int, window: int):
     return tgt8[g], minv.reshape(-1), g.to(torch.int32)
 
 
-def _match_slab_cuda(src_p, tgt8, starts, ts: int, window: int):
-    Sp = src_p.shape[0]
-    if src_p.dtype != torch.float32 or tgt8.dtype != torch.float32:
+def _slab_query_plain(src, index: SlabIndex, ts: int, window: int,
+                      margin: float):
+    """Plain version of one K1 query: pad, LUT starts, windowed search."""
+    S = src.shape[0]
+    src_p = _pad_rows(src, ts, SENTINEL)
+    starts = _slab_starts_lut(src_p, index, ts, window, margin)
+    qn, minv, argm = _match_slab_plain(src_p, index.tgt8, starts, ts, window)
+    return qn[:S], torch.clamp(minv[:S], min=0.0), argm[:S], starts
+
+
+def _slab_plan(window: int) -> tuple[int, int]:
+    """``(chunks, chunk length)`` of one tile's window for the K1 kernel, one
+    block a chunk: at most 8 chunks (a power of two) of at least 256 targets,
+    the length a multiple of 64 (the kernel pads the last chunk)."""
+    n_chunk = 1
+    while n_chunk < 8 and window // (2 * n_chunk) >= 256:
+        n_chunk *= 2
+    return n_chunk, -(-(-(-window // n_chunk)) // 64) * 64
+
+
+def _slab_query_cuda(src, index: SlabIndex, ts: int, window: int,
+                     margin: float):
+    """One K1 query on the card: one kernel launch and nothing else (the
+    first query of an index also allocates its merge scratch). The kernel
+    pads by masking rows past S, computes the window starts from
+    ``index.lo``, ``index.inv_h`` and ``index.lut`` on the device, clamps d2
+    and writes only the S live rows."""
+    S, dev = src.shape[0], src.device
+    if src.dtype != torch.float32 or index.tgt8.dtype != torch.float32:
         raise ValueError("match_slab kernel takes float32 points")
-    if ts > 1024:
-        raise ValueError("match_slab kernel takes tiles of at most 1024 rows")
-    src_p = src_p.contiguous()
-    starts = starts.to(torch.int32).contiguous()
-    qn = torch.empty((Sp, 8), dtype=torch.float32, device=src_p.device)
-    minv = torch.empty((Sp,), dtype=torch.float32, device=src_p.device)
-    argm = torch.empty((Sp,), dtype=torch.int32, device=src_p.device)
-    _check_cuda(src_p, starts, minv, argm, aligned=(tgt8, qn))
+    if index.lut.dtype != torch.int64 or index.lo.dtype != torch.float32:
+        raise ValueError("match_slab kernel takes an int64 LUT and f32 scale")
+    src = src.contiguous()
+    qn = torch.empty((S, 8), dtype=torch.float32, device=dev)
+    d2 = torch.empty((S,), dtype=torch.float32, device=dev)
+    argm = torch.empty((S,), dtype=torch.int32, device=dev)
+    n_tiles = -(-S // ts)
+    starts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    n_chunk, chunk = _slab_plan(window)
+    plan = (n_tiles, ts, n_chunk)
+    if plan not in index.scratch:
+        index.scratch[plan] = (
+            torch.empty(plan, dtype=torch.int64, device=dev),
+            torch.zeros((n_tiles,), dtype=torch.int32, device=dev),
+        )
+    part, tickets = index.scratch[plan]
+    _check_cuda(src, index.lut, index.lo, index.inv_h, part, tickets, d2,
+                argm, starts, aligned=(index.tgt8, qn))
     MATCH_SLAB.launch(
-        src_p.data_ptr(), tgt8.data_ptr(), starts.data_ptr(), Sp // ts, ts,
-        window, qn.data_ptr(), minv.data_ptr(), argm.data_ptr(),
-        _stream(src_p),
+        src.data_ptr(), S, index.tgt8.data_ptr(), index.padded_T,
+        index.lut.data_ptr(), index.lo.data_ptr(), index.inv_h.data_ptr(),
+        margin, ts, window, n_chunk, chunk, part.data_ptr(),
+        tickets.data_ptr(), qn.data_ptr(), d2.data_ptr(), argm.data_ptr(),
+        starts.data_ptr(), _stream(src),
     )
-    return qn, minv, argm
-
-
-def _match_slab_call(src_p, tgt8, starts, ts: int, window: int):
-    if _is_cuda(src_p):
-        return _match_slab_cuda(src_p, tgt8, starts, ts, window)
-    return _match_slab_plain(src_p, tgt8, starts, ts, window)
+    return qn, d2, argm, starts
 
 
 def _slab_query(src, index: SlabIndex, ts: int, window: int, margin: float,
-                call):
-    S = src.shape[0]
-    ts = min(ts, max(8, S))
+                call=None):
+    """``(qn (S, 8), d2 (S,), idx (S,) int32, starts (tiles,) int32)``;
+    ``call`` defaults to the kernel for CUDA tensors and the plain version
+    for CPU tensors."""
+    ts = min(ts, max(8, src.shape[0]))
     window = min(window, index.padded_T)
-    src_p = _pad_rows(src, ts, SENTINEL)
-    starts = _slab_starts_lut(src_p, index, ts, window, margin)
-    qn, minv, argm = call(src_p, index.tgt8, starts, ts, window)
-    return qn[:S], torch.clamp(minv[:S], min=0.0), argm[:S], starts
+    if call is None:
+        call = _slab_query_cuda if _is_cuda(src) else _slab_query_plain
+    return call(src, index, ts, window, margin)
 
 
 def _nn1_slab(src, tgt, tgt_mask, ts, window, margin, call):
@@ -312,13 +406,13 @@ def nn1_slab(src, tgt, tgt_mask, ts: int = 256, window: int = 4096,
              margin: float = 3.0):
     """Slab-windowed 1-NN (K1; contract of ``nn1_slab_pallas``):
     ``(idx (S,) int32 clamped to T-1, dist2 (S,))``."""
-    return _nn1_slab(src, tgt, tgt_mask, ts, window, margin, _match_slab_call)
+    return _nn1_slab(src, tgt, tgt_mask, ts, window, margin, None)
 
 
 def nn1_slab_torch(src, tgt, tgt_mask, ts: int = 256, window: int = 4096,
                    margin: float = 3.0):
     """Plain version of :func:`nn1_slab`."""
-    return _nn1_slab(src, tgt, tgt_mask, ts, window, margin, _match_slab_plain)
+    return _nn1_slab(src, tgt, tgt_mask, ts, window, margin, _slab_query_plain)
 
 
 def match_slab(src, tgt, tgt_mask, tgt_normals, ts: int = 256,
@@ -326,14 +420,14 @@ def match_slab(src, tgt, tgt_mask, tgt_normals, ts: int = 256,
     """Fused slab 1-NN + gather (K1; contract of ``match_slab_pallas``):
     ``(matched (S, 3), normals (S, 3), dist2 (S,))``."""
     return _match_slab(src, tgt, tgt_mask, tgt_normals, ts, window, margin,
-                       _match_slab_call)
+                       None)
 
 
 def match_slab_torch(src, tgt, tgt_mask, tgt_normals, ts: int = 256,
                      window: int = 4096, margin: float = 3.0):
     """Plain version of :func:`match_slab`."""
     return _match_slab(src, tgt, tgt_mask, tgt_normals, ts, window, margin,
-                       _match_slab_plain)
+                       _slab_query_plain)
 
 
 class SlabBackend:
@@ -341,7 +435,7 @@ class SlabBackend:
 
     ``__call__`` is the plain ``nn1_fn`` contract; ``prepare_match`` is
     ops/icp.py's fused protocol: the index is built once per ICP call and
-    each iteration pays only the LUT lookup and one kernel launch."""
+    each iteration is one kernel launch (window starts included)."""
 
     def __init__(self, ts: int = 256, window: int = 4096, margin: float = 3.0):
         self.ts, self.window, self.margin = ts, window, margin
@@ -354,7 +448,7 @@ class SlabBackend:
 
         def q(cur):
             qn, d2, _, _ = _slab_query(cur, index, self.ts, self.window,
-                                       self.margin, _match_slab_call)
+                                       self.margin)
             return qn[:, 0:3], qn[:, 3:6], d2
 
         return q

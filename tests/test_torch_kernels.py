@@ -68,6 +68,71 @@ def test_nn1_kernel_ties_keep_first_index(cuda):
     assert int(idx.max()) < 3000
 
 
+def _nn1_edge_case(name):
+    """(src, tgt, mask, expected first indices or None) for the K2 designs'
+    edges: the split, tile and group boundaries of the target."""
+    g = _gen(7)
+    if name == "one_lane":       # a single lane still fills the card
+        lanes, S, T = 1, 4096, 32768
+    elif name == "ragged_T":     # T not a multiple of the tile or of 4
+        lanes, S, T = 2, 700, 1027
+    elif name == "ragged_S":     # S not a multiple of the block's rows
+        lanes, S, T = 1, 513, 2048
+    elif name == "tiny":         # fewer targets than one group
+        lanes, S, T = 3, 5, 3
+    else:                        # split_tie
+        lanes, S, T = 1, 4096, 32768
+    src = (g.normal(size=(lanes, S, 3)) * 20).astype(np.float32)
+    tgt = (g.normal(size=(lanes, T, 3)) * 20).astype(np.float32)
+    mask = np.ones((lanes, T), bool)
+    want = None
+    if name == "split_tie":
+        # equal rows on both sides of group (16), tile (512) and split
+        # (1,024 and up) boundaries, and far apart; a source on the point
+        # itself (d2 == 0) must get the lower index
+        bounds = [16, 512, 1024, 2048, 4096, 16384, 32767]
+        want = {}
+        for r, b in enumerate(bounds):
+            tgt[0, b] = tgt[0, b - 1]
+            far = (b + 9000) % T
+            tgt[0, far] = tgt[0, b - 1]
+            src[0, r] = tgt[0, b - 1]
+            want[r] = min(b - 1, far)
+    return src, tgt, mask, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["one_lane", "ragged_T", "ragged_S", "tiny",
+                                  "split_tie"])
+def test_nn1_kernel_edges(cuda, name):
+    src, tgt, mask, want = _nn1_edge_case(name)
+    s, t, m = (_dev(x, cuda) for x in (src, tgt, mask))
+    idx_k, d2_k = knn_cuda.nn1(s, t, m)
+    idx_p, d2_p = knn_cuda.nn1_torch(s, t, m)
+    _exact(idx_k, idx_p)
+    _exact(d2_k, d2_p)
+    for r, i in (want or {}).items():
+        assert int(idx_k[0, r]) == i and float(d2_k[0, r]) == 0.0
+
+
+@pytest.mark.gpu
+def test_nn1_prepare_query_equals_nn1(cuda):
+    """One layout, several queries: each is one launch and equals nn1; the
+    kernel leaves its tickets ready for the next launch."""
+    src, tgt, mask, _ = _nn1_edge_case("ragged_T")
+    mask[0, 500:] = False
+    s, t, m = (_dev(x, cuda) for x in (src, tgt, mask))
+    query = knn_cuda.nn1.prepare(t, m)
+    before = knn_cuda.NN1.launches
+    for shift in (0.0, 0.5, 0.0):
+        idx_q, d2_q = query(s + shift)
+        idx_n, d2_n = knn_cuda.nn1_torch(s + shift, t, m)
+        _exact(idx_q, idx_n)
+        _exact(d2_q, d2_n)
+    assert knn_cuda.NN1.launches == before + 3
+    assert int(idx_q[0].max()) < 500
+
+
 def _slab_case(g, n_tgt, n_src, scale, masked):
     tgt = (g.normal(size=(n_tgt, 3)) * scale).astype(np.float32)
     tgt = tgt[np.argsort(tgt[:, 0])]
@@ -101,6 +166,39 @@ def test_match_slab_kernel_matches_plain(cuda, n_tgt, n_src, ts, window):
     # the fused gather is the row gather, bit for bit
     _exact(out_k[0], args[1][idx_k.long()])
     _exact(out_k[1], args[3][idx_k.long()])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ragged_S", "sentinel_tile", "short_S",
+                                  "small_target", "wide_tile"])
+def test_match_slab_kernel_edges(cuda, name):
+    """One K1 query, kernel against plain: matched rows, d2, indices and the
+    window starts the kernel computed itself."""
+    n_tgt, n_src, ts, window = {
+        "ragged_S": (32768, 4001, 256, 4096),       # last tile has 161 rows
+        "sentinel_tile": (32768, 4096, 256, 4096),  # a tile of invalid rows
+        "short_S": (5000, 100, 256, 1024),          # S < ts: one 100-row tile
+        "small_target": (200, 300, 128, 4096),      # window = padded target
+        "wide_tile": (20000, 3000, 1000, 2048),     # several passes a tile
+    }[name]
+    src, tgt, mask, normals = _slab_case(_gen(n_src), n_tgt, n_src, 50.0,
+                                         masked=True)
+    if name == "sentinel_tile":
+        src[-300:] = knn_cuda.SENTINEL  # as the ICP displaces invalid rows
+    src, tgt, mask, normals = (_dev(x, cuda) for x in (src, tgt, mask, normals))
+    index = knn_cuda._build_slab_index(tgt, mask, normals)
+    before = knn_cuda.MATCH_SLAB.launches
+    out_k = knn_cuda._slab_query(src, index, ts, window, 3.0)
+    assert knn_cuda.MATCH_SLAB.launches == before + 1
+    out_p = knn_cuda._slab_query(src, index, ts, window, 3.0,
+                                 knn_cuda._slab_query_plain)
+    for a, b in zip(out_k, out_p):  # qn, d2, idx, starts
+        assert a.shape == b.shape
+        _exact(a, b)
+    ts_eff = min(ts, max(8, n_src))
+    src_p = knn_cuda._pad_rows(src, ts_eff, knn_cuda.SENTINEL)
+    _exact(out_k[3], knn_cuda._slab_starts_lut(
+        src_p, index, ts_eff, min(window, index.padded_T), 3.0))
 
 
 def test_cuda_wrappers_refuse_other_devices():

@@ -139,3 +139,95 @@ def test_cpu_wrappers_use_plain_versions(rng):
     np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
     knn_cuda.match_slab(_t(src), _t(tgt), _t(mask), _t(normals))
     assert [k.launches for k in knn_cuda.KERNELS] == before
+
+
+def _merge_key(d2, idx):
+    """The kernels' merge key, (bits(d2) << 32) | idx, as int64. For
+    d2 >= +0 (a sum of squares) the f32 bits order as integers and stay
+    below 2^31, so the signed int64 min is the kernels' unsigned min."""
+    bits = d2.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    return (bits << 32) | idx.to(torch.int64)
+
+
+def _split_key(key):
+    return ((key & 0xFFFFFFFF).to(torch.int32),
+            (key >> 32).to(torch.int32).view(torch.float32))
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 16, 64, 100, 256, 300])
+def test_key_merge_keeps_first_index_minimum(rng, chunk):
+    """The kernels' merge rule in plain torch: split each row's candidates
+    into chunks, take per-chunk first-index minima, merge by the 64-bit key
+    (d2 bits, index) with an integer min in any order; the result is
+    torch.min over the whole row, ties and a zero distance included."""
+    S, T = 48, 300
+    tgt = (rng.normal(size=(T, 3)) * 5).astype(np.float32)
+    src = (rng.normal(size=(S, 3)) * 5).astype(np.float32)
+    b = min(chunk, T - 1)          # a chunk boundary (or the last row)
+    tgt[b] = tgt[b - 1]            # equal rows on both sides of it
+    tgt[(b + 150) % T] = tgt[b - 1]  # ... and far away
+    src[0] = tgt[b - 1]            # d2 == 0 to all three
+    src[1] = tgt[b - 1] + np.float32(0.01)  # a positive exact tie
+    d2 = knn_cuda.sq_dist(_t(src), _t(tgt))          # (S, T)
+    keys = []
+    for off in range(0, T, chunk):
+        local_d, local_i = torch.min(d2[:, off:off + chunk], dim=1)
+        keys.append(_merge_key(local_d, local_i + off))
+    order = rng.permutation(len(keys))
+    merged = torch.stack([keys[i] for i in order]).min(dim=0).values
+    idx, dist = _split_key(merged)
+    want_d, want_i = torch.min(d2, dim=1)
+    np.testing.assert_array_equal(idx.numpy(), want_i.numpy())
+    np.testing.assert_array_equal(dist.numpy(), want_d.numpy())
+    first = min(b - 1, (b + 150) % T)
+    assert int(idx[0]) == first and float(dist[0]) == 0.0
+    assert int(idx[1]) == first and float(dist[1]) > 0.0
+
+
+def _dyadic_case(rng, name):
+    """Coordinates on a 0.25 grid within +-16: every product and sum is exact
+    in f32, so the difference form (the port, the Pallas kernel) and the
+    |s|^2+|t|^2-2s.t form (the JAX package's XLA nn1) agree to the bit."""
+    T, S = 512, 96
+    tgt = rng.integers(-64, 65, size=(T, 3)).astype(np.float32) / 4
+    src = rng.integers(-64, 65, size=(S, 3)).astype(np.float32) / 4
+    mask = np.ones(T, bool)
+    if name == "masked":
+        mask[300:] = False
+    else:  # tie: the second half repeats the first
+        tgt[256:] = tgt[:256]
+        src[:10] = tgt[250:260]
+    return src, tgt, mask
+
+
+@pytest.mark.parametrize("name", ["masked", "tie"])
+def test_nn1_prepare_matches_nn1_and_jax(rng, name):
+    from lidar_slam_tpu.ops import knn as knn_jax
+
+    src, tgt, mask = _dyadic_case(rng, name)
+    query = knn_cuda.nn1.prepare(_t(tgt[None]), _t(mask[None]))
+    idx_q, d2_q = query(_t(src[None]))
+    idx_n, d2_n = knn_cuda.nn1(_t(src[None]), _t(tgt[None]), _t(mask[None]))
+    np.testing.assert_array_equal(idx_q.numpy(), idx_n.numpy())
+    np.testing.assert_array_equal(d2_q.numpy(), d2_n.numpy())
+    args = (jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask))
+    for idx_j, d2_j in (
+        knn_jax.nn1(*args, chunk=128),
+        knn_pallas.nn1_pallas(*args, ts=32, tt=128, interpret=True),
+    ):
+        np.testing.assert_array_equal(idx_q[0].numpy(), np.asarray(idx_j))
+        np.testing.assert_allclose(d2_q[0].numpy(), np.asarray(d2_j),
+                                   rtol=1e-6, atol=0)
+    assert idx_q.max() < (300 if name == "masked" else 256)
+
+
+def test_nn1_plan_covers_the_target():
+    """Every split of a K2 launch holds at least one tile and together they
+    hold all of them; a few hundred blocks at the main path's shapes."""
+    for lanes, S, Tp in [(3, 4096, 32768), (1, 4096, 32768), (1, 5, 512),
+                         (8, 100000, 1024), (2, 777, 30208)]:
+        n_split, per = knn_cuda._nn1_plan(lanes, S, Tp, 132)
+        n_tiles = Tp // knn_cuda._NN1_TILE
+        assert (n_split - 1) * per < n_tiles <= n_split * per
+    assert knn_cuda._nn1_plan(3, 4096, 32768, 132) == (11, 6)
+    assert knn_cuda._nn1_plan(1, 4096, 32768, 132) == (32, 2)

@@ -9,7 +9,11 @@ corridor route, 32,768-point clouds, 4,608-frame DB) and reports:
   finalize) — the synchronisation itself costs a little;
 - a ``torch.profiler`` trace of two windows (steady odometry frames, and
   the revisit frames with firing loop ticks): device time by kernel and the
-  device's busy share of the window's wall time.
+  device's busy share of the window's wall time;
+- the odometry ICP's device launches: 24 ICP calls of the steady frames are
+  replayed one by one under the profiler, and a line fitted through
+  (iterations, launches) gives the launches per iteration and per call
+  set-up, hand-written kernels, ATen kernels and copies apart.
 
 Run from the repository root on a machine with a card:
 
@@ -80,7 +84,14 @@ def main() -> int:
     orig_normals_fn = pipeline.normals_fn
     originals = (pipeline.icp_point_to_plane, pipeline.update_occupancy,
                  lc.add_frame)
-    pipeline.icp_point_to_plane = timed("icp", pipeline.icp_point_to_plane)
+    icp_calls = []  # the arguments of the ICP calls of frames 100-123
+
+    def icp_capture(*a, **kw):
+        if 100 <= stage_n["icp"] + 1 < 124:
+            icp_calls.append((a, kw))
+        return originals[0](*a, **kw)
+
+    pipeline.icp_point_to_plane = timed("icp", icp_capture)
     pipeline.normals_fn = lambda cfg: timed("normals", orig_normals_fn(cfg))
     pipeline.update_occupancy = timed("occupancy", pipeline.update_occupancy)
     lc.add_frame = timed("db_write", lc.add_frame)
@@ -145,11 +156,39 @@ def main() -> int:
             ],
         }
 
+    # launches of one odometry ICP iteration: replay the captured calls
+    import numpy as np
+
+    hand_names = ("match_slab_kernel", "nn1_kernel")
+    per_call = []
+    for a, kw in icp_calls:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = originals[0](*a, **kw)
+            torch.cuda.synchronize()
+        counts = {"hand": 0, "aten": 0, "copies": 0}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if any(h in e.key for h in hand_names):
+                counts["hand"] += e.count
+            elif e.key.startswith(("Memcpy", "Memset")):
+                counts["copies"] += e.count
+            else:
+                counts["aten"] += e.count
+        per_call.append({"iterations": int(res.num_iterations), **counts})
+    iters = np.array([c["iterations"] for c in per_call], float)
+    icp_launches = {"calls": per_call}
+    if len(set(iters)) >= 2:  # launches = set-up + per-iteration * iterations
+        for k in ("hand", "aten", "copies"):
+            slope, icept = np.polyfit(iters, [c[k] for c in per_call], 1)
+            icp_launches[k] = {"per_iteration": float(slope),
+                               "per_call_setup": float(icept)}
+
     out = {
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": chip_smoke.nvidia_smi(),
         "frames": n, "run_preloaded_s": run_s, "finalize_s": t2 - t1,
-        "stages": stages, "windows": traces,
+        "stages": stages, "windows": traces, "icp_launches": icp_launches,
     }
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
@@ -164,6 +203,13 @@ def main() -> int:
               f"({100 * t['device_busy_share']:.1f}%)")
         for r in t["top_device_ms"][:8]:
             print(f"   {r['ms']:9.2f} ms  x{r['count']:6d}  {r['name']}")
+    for k in ("hand", "aten", "copies"):
+        if k in icp_launches:
+            v = icp_launches[k]
+            print(f"odometry ICP, {k:6s} launches: {v['per_iteration']:.2f} per "
+                  f"iteration + {v['per_call_setup']:.2f} per call (fit over "
+                  f"{len(per_call)} calls, {int(iters.min())}-{int(iters.max())} "
+                  f"iterations)")
     return 0
 
 

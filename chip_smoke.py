@@ -20,11 +20,25 @@ Phases, one line each (plus details):
    kernel times are device times (a CUDA graph of launches between two
    events), the plain and whole-call times CUDA-event loops; each kernel's
    bound is computed from the card's SM count and clock;
+   K2 also at the exact modes' shapes, 1 and 3 lanes x 32,768 x 32,768
+   (fidelity odometry, full-density verification);
 4. the engine: the full-size fast-mode config (32,768-point clouds, a
    4,608-frame keyframe DB, 8192^2 grid) on a 500-frame corridor route whose
    last eighth revisits the start, through ``SlamEngine.preload ->
    run_preloaded -> finalize``; scans/s, peak device memory, ATE before and
-   after finalize, loops, and the kernels' launch counts in that run.
+   after finalize, loops, and the kernels' launch counts in that run;
+5. the command line, in process, at the same width (65,536 raw points,
+   32,768-point clouds, 8192^2 grid, the keyframe DB sized to the dataset):
+   **cli-fast**: the 500 raw scans of phase 4 written as ``.ply`` with
+   ``poses_gt.txt``, ``run --mode fast --resident``; every artifact is
+   checked, and loops, firing ticks and ATE must equal phase 4's;
+   **cli-fidelity**: a 120-frame route with a revisit, ``run --mode
+   fidelity --no-host-voxelize`` streaming, with a checkpoint and a
+   snapshot on the way: a loop must close, optimize-on-find must move the
+   poses, K2 must run and K1 must not, ``frame_npts`` must be the voxel
+   counts; **cli-resume**: the same command from the checkpoint must give
+   the uninterrupted run's final trajectory bit for bit. Each run prints its
+   scans/s, prep / upload / device times, peak device memory and launches.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -36,8 +50,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -47,6 +63,17 @@ N_POINTS = 32768  # the slice config's max_points
 VOXEL = 0.5
 # K1: target and source scans; K2: three lanes' targets
 KERNEL_FRAMES = (10, 11, 20, N_FRAMES // 2, N_FRAMES - 20)
+# the fidelity route: its last eighth (frames 105-119) re-drives frames 0-14,
+# so the loop tick of frame 110 finds frame 5; the checkpoint is written
+# after frame 60 (the first loop tick), the snapshot after frame 100
+FID_FRAMES = 120
+FID_CHECKPOINT = 60
+FID_SNAPSHOT = 100
+# one frame of it is thinned to every 4th raw point, so that its voxel count
+# lies below the cloud pad and frame_npts can be told from the pad
+FID_SPARSE = 77
+ARTIFACTS = ("trajectory.txt", "trajectory_tum.txt", "map.ply",
+             "occupancy.npz", "occupancy.pgm", "metrics.jsonl")
 
 
 def log(msg: str) -> None:
@@ -142,7 +169,8 @@ def bound_ms(evaluations: int, n_bytes: int, rates: dict) -> tuple[float, str]:
 
 
 def prepare_route():
-    """The 500-frame corridor route, rendered and host-voxelized."""
+    """The 500-frame corridor route, rendered and host-voxelized: the
+    prepared scans, the ground truth and the raw scans."""
     import numpy as np
 
     from lidar_slam_tpu_torch.utils.dataset import (
@@ -158,13 +186,10 @@ def prepare_route():
     renderer = ScanRenderer(world)
     gt = generate_trajectory(N_FRAMES, half=half)
     rng = np.random.default_rng(0)
-    scans = [
-        voxel_downsample_host(
-            renderer.render(gt[i], rng, max_points=RAW_POINTS), VOXEL, N_POINTS
-        )
-        for i in range(N_FRAMES)
-    ]
-    return scans, gt
+    raw = [renderer.render(gt[i], rng, max_points=RAW_POINTS)
+           for i in range(N_FRAMES)]
+    scans = [voxel_downsample_host(r, VOXEL, N_POINTS) for r in raw]
+    return scans, gt, raw
 
 
 def _nbytes(*tensors) -> int:
@@ -208,6 +233,7 @@ def check_kernels(scans, dev):
     # the odometry ICP's source: sentinel-displaced, strided to 4,096 rows
     src_pts = torch.where(src_mask[:, None], src_pts,
                           torch.full_like(src_pts, 1.0e6))
+    src_full = src_pts.contiguous()
     src = PointCloud(src_pts, src_mask).subsample(4096).points.contiguous()
     results = []
 
@@ -264,7 +290,7 @@ def check_kernels(scans, dev):
         source="lidar_slam_tpu_torch/csrc/knn.cu",
         replaces=knn_cuda.MATCH_SLAB.replaces, max_abs_err=err1,
         ms=ms1, plain_ms=pms1, bound_ms=b1, bound_by=by1, library_ms=None,
-        call_ms=call1,
+        call_ms=call1, shape="4096 x window 4096 of 32768",
     ))
 
     # K2: 3 lanes in one launch, each 4,096 sources vs 32,768 targets ---------
@@ -324,8 +350,43 @@ def check_kernels(scans, dev):
         name="nn1", route="cuda", source="lidar_slam_tpu_torch/csrc/knn.cu",
         replaces=knn_cuda.NN1.replaces, max_abs_err=err2,
         ms=ms2, plain_ms=pms2, bound_ms=b2, bound_by=by2, library_ms=None,
-        call_ms=call2,
+        call_ms=call2, shape="3x4096x32768",
     ))
+
+    # K2 at the exact modes' shapes: fidelity odometry is one lane of 32,768
+    # sources against 32,768 targets, full-density verification three ----
+    sms = rates["sms"]
+    full = [torch.where(m[:, None], c, torch.full_like(c, 1.0e6))
+            for c, m in lanes[1:] + lanes[:1]]  # sentinel-displaced sources,
+    # as ICP makes them: each lane's source is another frame's cloud
+    for n_lanes, s_big in ((1, src_full[None]), (3, torch.stack(full))):
+        t_b, m_b = t3[:n_lanes], m3[:n_lanes]
+        if n_lanes == 1:
+            t_b, m_b = tgt[None], tmask[None]
+        splits, tiles_per = knn_cuda._nn1_plan(n_lanes, N, N, sms)
+        blocks = n_lanes * (N // 512) * splits
+        check(splits * tiles_per >= N // 512 and (splits - 1) * tiles_per < N // 512,
+              f"K2 plan at {n_lanes}x{N}x{N} does not cover the target")
+        check(splits <= 65535 and n_lanes <= 65535, "K2 grid out of range")
+        e, _ = k2_same(s_big, t_b, m_b,
+                       f"K2 ({n_lanes} x {N} x {N}) differs from plain")
+        q_big = knn_cuda.nn1.prepare(t_b, m_b)
+        ms_b = time_graph_ms(lambda: q_big(s_big), reps=5)
+        pms_b = time_ms(lambda: knn_cuda.nn1_torch(s_big, t_b, m_b), reps=2)
+        i_b, d_b = q_big(s_big)
+        b_b, by_b = bound_ms(n_lanes * N * N,
+                             _nbytes(s_big, t_b, m_b, i_b, d_b), rates)
+        shape = f"{n_lanes}x{N}x{N}"
+        log(f"[kernels] K2 nn1 {shape}: exact (idx, d2); plan {splits} splits "
+            f"x {tiles_per} tiles, {blocks} blocks; kernel {ms_b:.4f} ms, "
+            f"bound {b_b:.4f} ms ({by_b}), plain {pms_b:.4f} ms")
+        results.append(dict(
+            name=f"nn1@{shape}", route="cuda",
+            source="lidar_slam_tpu_torch/csrc/knn.cu",
+            replaces=knn_cuda.NN1.replaces, max_abs_err=e, ms=ms_b,
+            plain_ms=pms_b, bound_ms=b_b, bound_by=by_b, library_ms=None,
+            shape=shape,
+        ))
     return results
 
 
@@ -375,7 +436,225 @@ def run_engine(scans, gt, dev):
     check(launches["match_slab"] > 0 and launches["nn1"] > 0,
           f"a kernel of the main path was not launched: {launches}")
     check(ate1 <= ate0 + 0.05, f"finalize made ATE worse: {ate0} -> {ate1}")
-    return launches
+    return dict(launches=launches, loops=m["loop_count"],
+                verify_fired=m["verify_fired"], ate=ate1)
+
+
+class RunSpy:
+    """What a command-line run does not write to its artifacts, recorded
+    while it runs in this process: the trajectory just before and after
+    ``finalize``, the engine's counters, every optimize-on-find chunk (LM
+    iterations and the largest pose move), and K2's launches by ``lanes x
+    sources``. It patches the package's functions for the length of a
+    ``with`` block and calls the originals."""
+
+    def __init__(self):
+        self.before = self.after = self.metrics = None
+        self.chunks = []
+        self.nn1_shapes = {}
+
+    def __enter__(self):
+        from lidar_slam_tpu_torch.models import pipeline
+        from lidar_slam_tpu_torch.ops import knn_cuda
+
+        self._orig = (pipeline.SlamEngine.finalize, pipeline.optimize_on_find,
+                      knn_cuda.NN1.launch)
+        fin, opt, launch = self._orig
+        spy = self
+
+        def finalize(engine):
+            spy.before = engine.trajectory()
+            res = fin(engine)
+            spy.after, spy.metrics = engine.trajectory(), engine.metrics()
+            return res
+
+        def optimize_on_find(state, config):
+            old = state.poses[: state.n_poses, :3, 3].clone()
+            res = opt(state, config)
+            move = (state.poses[: state.n_poses, :3, 3] - old).norm(dim=1).max()
+            spy.chunks.append(dict(iterations=res.iterations,
+                                   converged=res.converged, moved=float(move)))
+            return res
+
+        def nn1_launch(*args):
+            launch(*args)
+            key = f"{args[2]}x{args[3]}"  # lanes x sources of this launch
+            spy.nn1_shapes[key] = spy.nn1_shapes.get(key, 0) + 1
+
+        pipeline.SlamEngine.finalize = finalize
+        pipeline.optimize_on_find = optimize_on_find
+        knn_cuda.NN1.launch = nn1_launch
+        return self
+
+    def __exit__(self, *exc):
+        from lidar_slam_tpu_torch.models import pipeline
+        from lidar_slam_tpu_torch.ops import knn_cuda
+
+        (pipeline.SlamEngine.finalize, pipeline.optimize_on_find,
+         knn_cuda.NN1.launch) = self._orig
+
+
+def run_cli(tag, argv, n_frames, dev):
+    """One ``run`` of the command line in this process, with the kernels'
+    counts set to 0 just before and read just after; checks the exit code
+    and the artifacts and returns what the phase checks need."""
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch import cli
+    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.utils.io import load_ply
+
+    out_dir = argv[argv.index("--out-dir") + 1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in knn_cuda.KERNELS:
+        k.launches = 0
+    with RunSpy() as spy:
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, f"[{tag}] the command line returned {rc}")
+    for name in ARTIFACTS:
+        path = os.path.join(out_dir, name)
+        check(os.path.isfile(path) and os.path.getsize(path) > 0,
+              f"[{tag}] artifact {name} is missing or empty")
+    traj = np.loadtxt(os.path.join(out_dir, "trajectory.txt"))
+    check(traj.shape == (n_frames, 12) and bool(np.isfinite(traj).all()),
+          f"[{tag}] trajectory.txt is not one finite pose per frame")
+    cloud = load_ply(os.path.join(out_dir, "map.ply"))
+    check(cloud.ndim == 2 and cloud.shape[1] == 3 and len(cloud) > 0
+          and bool(np.isfinite(cloud).all()), f"[{tag}] map.ply does not read back")
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    summary = rows.pop()
+    check(summary.get("summary") is True and len(rows) == n_frames,
+          f"[{tag}] metrics.jsonl is not one row per frame and a summary")
+    with np.load(os.path.join(out_dir, "occupancy.npz")) as occ:
+        check(occ["data"].size > 0 and int((occ["data"] > 0).sum()) > 0,
+              f"[{tag}] the occupancy grid is empty")
+    times = {k: summary[k] for k in ("prep_sec", "upload_sec", "device_sec",
+                                     "push_sec", "finalize_sec") if k in summary}
+    log(f"[{tag}] {summary['scans_per_sec']:.3f} scans/s over "
+        f"{summary['wall_sec']:.3f} s; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; peak device memory {peak / 2**30:.3f} GiB; ATE "
+        f"{summary['ate_rmse']:.4f} m; loops {summary['loop_count']}; launches "
+        f"{launches}, K2 by lanes x sources {spy.nn1_shapes}; map.ply "
+        f"{len(cloud)} points")
+    return dict(summary=summary, rows=rows, launches=launches, spy=spy,
+                out_dir=out_dir)
+
+
+def run_cli_fast(raw, gt, engine, work, dev):
+    """[cli-fast]: the engine phase's route from files, through the command
+    line; the two must agree."""
+    from lidar_slam_tpu_torch.utils.dataset import save_poses_kitti
+    from lidar_slam_tpu_torch.utils.io import save_ply
+
+    data = os.path.join(work, "route500")
+    os.makedirs(data)
+    for i, pts in enumerate(raw):
+        save_ply(os.path.join(data, f"{i:06d}.ply"), pts)
+    save_poses_kitti(os.path.join(data, "poses_gt.txt"), gt)
+    out = run_cli("cli-fast", [
+        "run", "--data-dir", data, "--out-dir", os.path.join(work, "out_fast"),
+        "--mode", "fast", "--resident",
+    ], N_FRAMES, dev)
+    s, spy = out["summary"], out["spy"]
+    check(out["launches"]["match_slab"] > 0 and out["launches"]["nn1"] > 0,
+          f"[cli-fast] a kernel was not launched: {out['launches']}")
+    # The command line sizes the keyframe DB to the dataset (508 frames
+    # against the engine phase's 4,608) and the cloud pad to the prepared
+    # maximum; neither may change what is found. ATE to 1e-4 m: the DB's
+    # capacity is the length of the f64 pose-graph solve's prefix sums.
+    check(s["loop_count"] == engine["loops"],
+          f"[cli-fast] loops {s['loop_count']} != engine phase {engine['loops']}")
+    check(spy.metrics["verify_fired"] == engine["verify_fired"],
+          f"[cli-fast] verify_fired {spy.metrics['verify_fired']} != engine "
+          f"phase {engine['verify_fired']}")
+    check(out["launches"] == engine["launches"],
+          f"[cli-fast] launches {out['launches']} != engine phase "
+          f"{engine['launches']}")
+    check(abs(s["ate_rmse"] - engine["ate"]) < 1e-4,
+          f"[cli-fast] ATE {s['ate_rmse']} != engine phase {engine['ate']}")
+    check(not spy.chunks, "[cli-fast] fast mode optimized mid-run")
+    return out
+
+
+def run_cli_fidelity(work, dev):
+    """[cli-fidelity] and [cli-resume]: fidelity mode, streaming, raw scans
+    through the device voxelizer, with a checkpoint on the way; then the
+    same command from the checkpoint."""
+    import numpy as np
+
+    from lidar_slam_tpu_torch.config import SlamConfig
+    from lidar_slam_tpu_torch.utils.dataset import load_gt_poses, make_dataset
+    from lidar_slam_tpu_torch.utils.io import load_ply, save_ply
+    from lidar_slam_tpu_torch.utils.metrics import ate_rmse
+    from lidar_slam_tpu_torch.utils.native import voxel_downsample_host
+
+    data = os.path.join(work, "route120")
+    t0 = time.perf_counter()
+    make_dataset(data, n_frames=FID_FRAMES, seed=0, max_points=RAW_POINTS)
+    sparse = os.path.join(data, f"{FID_SPARSE:06d}.ply")
+    save_ply(sparse, load_ply(sparse)[::4])
+    log(f"[prep] {FID_FRAMES}-frame dataset written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gt = load_gt_poses(os.path.join(data, "poses_gt.txt"))
+    base = ["run", "--data-dir", data, "--mode", "fidelity",
+            "--no-host-voxelize"]
+    out = run_cli("cli-fidelity", base + [
+        "--out-dir", os.path.join(work, "out_fid"),
+        "--checkpoint-every", str(FID_CHECKPOINT),
+        "--export-every", str(FID_SNAPSHOT),
+    ], FID_FRAMES, dev)
+    s, spy = out["summary"], out["spy"]
+    check(s["loop_count"] >= 1, "[cli-fidelity] no loop closed on the revisit")
+    check(out["launches"]["nn1"] > 0 and out["launches"]["match_slab"] == 0,
+          f"[cli-fidelity] expected K2 only: {out['launches']}")
+    check(set(spy.nn1_shapes) == {f"1x{N_POINTS}", f"3x{N_POINTS}"},
+          f"[cli-fidelity] K2 ran at other shapes: {spy.nn1_shapes}")
+    check(len(spy.chunks) >= 1 and max(c["moved"] for c in spy.chunks) > 1e-4,
+          f"[cli-fidelity] optimize-on-find did not move a pose: {spy.chunks}")
+    ate0, ate1 = ate_rmse(spy.before, gt), ate_rmse(spy.after, gt)
+    check(ate1 <= ate0 + 0.05,
+          f"[cli-fidelity] finalize made ATE worse: {ate0} -> {ate1}")
+    # frame_npts is the count of occupied voxels (at most the cloud pad);
+    # only the thinned frame's lies below the pad
+    npts = [r["npts"] for r in out["rows"]]
+    for i in sorted({*range(0, FID_FRAMES, 7), FID_SPARSE}):
+        raw = load_ply(os.path.join(data, f"{i:06d}.ply"))
+        want = min(len(voxel_downsample_host(raw, VOXEL)), N_POINTS)
+        check(npts[i] == want, f"[cli-fidelity] frame_npts[{i}] = {npts[i]}, "
+              f"{want} voxels are occupied")
+    check(SlamConfig().min_points <= npts[FID_SPARSE] < N_POINTS,
+          f"[cli-fidelity] the thinned frame has {npts[FID_SPARSE]} voxels, "
+          "not a count below the pad")
+    iters = [r["icp_iters"] for r in out["rows"][1:]]
+    log(f"[cli-fidelity] ATE {ate0:.4f} m before finalize, {ate1:.4f} m after; "
+        f"optimize-on-find chunks {spy.chunks}; mean icp_iters "
+        f"{float(np.mean(iters)):.3f}; npts {min(npts)}-{max(npts)}")
+
+    ckpt = os.path.join(out["out_dir"], "checkpoint.npz")
+    check(os.path.isfile(ckpt), "[cli-fidelity] no checkpoint was written")
+    with np.load(ckpt) as c:
+        frame, max_frames = int(c["__extra__/frame"]), c["poses"].shape[0]
+    check(frame == FID_CHECKPOINT + 1, f"checkpoint at frame {frame}")
+    res = run_cli("cli-resume", base + [
+        "--out-dir", os.path.join(work, "out_resume"), "--resume", ckpt,
+        "--max-frames", str(max_frames), "--max-points", str(N_POINTS),
+    ], FID_FRAMES, dev)
+    same = bool(np.array_equal(res["spy"].after, spy.after))
+    diff = float(np.abs(res["spy"].after - spy.after).max())
+    log(f"[cli-resume] resumed at frame {frame}: final trajectory "
+        f"{'bit-identical' if same else 'DIFFERS'} (max abs diff {diff:.3e}); "
+        f"loops {res['summary']['loop_count']}")
+    check(same, f"[cli-resume] the resumed run differs by {diff}")
+    check(res["summary"]["loop_count"] == s["loop_count"],
+          "[cli-resume] the resumed run found other loops")
+    return out, res
 
 
 def main() -> int:
@@ -407,14 +686,40 @@ def main() -> int:
         + "".join(f"\n  {ln}" for ln in ptxas))
 
     t0 = time.perf_counter()
-    scans, gt = prepare_route()
+    scans, gt, raw = prepare_route()
     log(f"[prep] {N_FRAMES} scans rendered and voxelized on the host in "
         f"{time.perf_counter() - t0:.1f} s (set-up, not timed below)")
 
     results = check_kernels(scans, dev)
-    launches = run_engine(scans, gt, dev)
+    engine = run_engine(scans, gt, dev)
+    del scans
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        fast = run_cli_fast(raw, gt, engine, work, dev)
+        del raw
+        fid, resumed = run_cli_fidelity(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # launches: the engine phase's for K1 and K2 at fast mode's shapes, the
+    # fidelity run's (by lanes x sources) for K2 at the exact modes' shapes
+    runs = {"cli-fast": fast, "cli-fidelity": fid, "cli-resume": resumed}
     for r in results:
-        r["launches"] = launches[r["name"]]
+        name, _, shape = r["name"].partition("@")
+        if shape:  # this shape's launches only (the engine phase has none)
+            key = "x".join(shape.split("x")[:2])
+            r["launches"] = fid["spy"].nn1_shapes.get(key, 0)
+            check(r["launches"] > 0,
+                  f"K2 was not launched at {shape} in the fidelity run")
+            r["launches_by_phase"] = {
+                tag: run["spy"].nn1_shapes.get(key, 0)
+                for tag, run in runs.items()
+            }
+        else:
+            r["launches"] = engine["launches"][name]
+            r["launches_by_phase"] = {
+                "engine": engine["launches"][name],
+                **{tag: run["launches"][name] for tag, run in runs.items()},
+            }
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ Knob mapping onto the port's kernels (``lidar_slam_tpu_torch/csrc/knn.cu``):
 
 - ``knn_backend="slab_pallas"`` -> K1, the slab-window fused match kernel
   (``ops/knn_cuda.SlabBackend``), used by odometry ICP;
-- ``knn_backend="auto"`` / ``"pallas"`` -> K2, the exact brute-force 1-NN
-  kernel (``ops/knn_cuda.nn1``); loop verification always uses it.
+- ``knn_backend="auto"`` / ``"pallas"`` / ``"xla"`` -> K2, the exact
+  brute-force 1-NN kernel (``ops/knn_cuda.nn1``; the three names are the same
+  exact search in the JAX package); loop verification always uses it.
 
 On CPU tensors both resolve to their plain PyTorch versions.
 """
@@ -210,6 +211,41 @@ def fast_mode(base: SlamConfig) -> SlamConfig:
         optimize_midrun=False,
         normal_probe_stride=2,
     )
+
+
+def fidelity_mode(base: SlamConfig) -> SlamConfig:
+    """The fidelity preset of ``lidar_slam_tpu.cli._apply_mode(base,
+    "fidelity")``: the reference's exact runtime settings (types.hpp:143-148,
+    icp.hpp:174 identity init, slam_node.cpp:112-115 optimize-on-find, full
+    density, exact 1-NN)."""
+    return base.replace(
+        icp=dataclasses.replace(
+            base.icp, max_iterations=50, tolerance=1e-6,
+            sample_points=0, target_points=0, warm_start=False,
+        ),
+        lc=dataclasses.replace(
+            base.lc, verify_sample=0, verify_tolerance=1e-6,
+            verify_coarse_iterations=0, yaw_seed=False,
+        ),
+        knn_backend="auto",
+        optimize_midrun=True,
+    )
+
+
+MODES = ("default", "fast", "fidelity")
+
+
+def apply_mode(base: SlamConfig, mode: str) -> SlamConfig:
+    """The ``--mode`` presets of the command line: ``"fast"``,
+    ``"fidelity"``, or ``"default"`` (``base`` unchanged: optimize-on-find,
+    exact 1-NN, full-density ICP at the config's own tolerances)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "fast":
+        return fast_mode(base)
+    if mode == "fidelity":
+        return fidelity_mode(base)
+    return base
 
 
 def slice_config() -> SlamConfig:

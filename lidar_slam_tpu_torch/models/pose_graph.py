@@ -128,6 +128,31 @@ def compact_loops(state: PoseGraphState) -> PoseGraphState:
     )
 
 
+def window_loops(state: PoseGraphState, window: int) -> PoseGraphState:
+    """View of ``state`` restricted to the NEWEST ``window`` loop factors.
+
+    The Woodbury solve's Cholesky is (6 * loop capacity)^2 per LM iteration
+    however many loops were accepted; the optimize-on-find chunk
+    (slam_node.cpp:112-115 semantics) uses this view to pay (6 * window)^2,
+    while finalize keeps optimizing over every factor. Slots are filled in
+    acceptance order, so the slice at ``clamp(n_loops - window, 0, capacity -
+    window)`` keeps the most recent loops, the ones correcting CURRENT
+    drift. Exact while ``n_loops <= window``; the identity for ``window <= 0``
+    or ``window >= capacity``.
+
+    A read-only view for :func:`optimize`: do not ``add_loop`` into it."""
+    cap = state.loop_valid.shape[0]
+    if window <= 0 or window >= cap:
+        return state
+    start = min(max(state.n_loops - window, 0), cap - window)
+    sl = slice(start, start + window)
+    return state.replace(
+        loop_from=state.loop_from[sl], loop_to=state.loop_to[sl],
+        loop_rel=state.loop_rel[sl], loop_valid=state.loop_valid[sl],
+        n_loops=min(state.n_loops, window),
+    )
+
+
 def _between_residual(Ti, Tj, meas_inv):
     return se3.log(se3.compose(meas_inv, se3.compose(se3.inverse(Ti), Tj)))
 
@@ -246,8 +271,11 @@ def _woodbury_solve(state: PoseGraphState, cfg: PoseGraphConfig, lam: float,
     def B(y):
         c = torch.einsum("lji,lj->li", X, y)
         diff = torch.zeros((F + 1, 6), dtype=r0.dtype, device=r0.device)
-        diff.index_add_(0, lo + 1, c)
-        diff.index_add_(0, hi + 1, -c)
+        # accumulating index_put_, not index_add_: on the GPU it sums equal
+        # indices (loops that share a frame) in a fixed order, so two runs
+        # give the same bits; index_add_'s atomic adds do not
+        diff.index_put_((lo + 1,), c, accumulate=True)
+        diff.index_put_((hi + 1,), -c, accumulate=True)
         A = torch.cumsum(diff[:F], dim=0)
         return torch.einsum("fji,fj->fi", G, A)
 
@@ -292,7 +320,12 @@ def optimize(state: PoseGraphState, cfg: PoseGraphConfig = PoseGraphConfig(),
     """Levenberg-Marquardt over the whole graph in ``state.poses``' dtype:
     Woodbury step, retract through the relative chain, Gram-Schmidt
     re-orthonormalisation, accept on the true cost with GTSAM's lambda
-    schedule, stop on the relative/absolute error tolerance."""
+    schedule, stop on the relative/absolute error tolerance.
+
+    ``max_iterations`` overrides ``cfg.max_iterations`` for this call; when
+    the bound stops the LM before the tolerance test passed, the result
+    reports ``converged=False`` (optimize-on-find keeps the graph pending
+    then)."""
     max_it = cfg.max_iterations if max_iterations is None else max_iterations
     poses = state.poses
     cost = graph_error(state, cfg)

@@ -13,6 +13,7 @@ z in [height_min, height_max] and horizontal distance to the sensor in
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import OccupancyGridConfig
@@ -69,3 +70,36 @@ def update_occupancy(
     keep = keep & in_patch
     grid[cx[keep], cy[keep]] = 1
     return n_dropped
+
+
+def grid_to_message(grid, config: OccupancyGridConfig) -> dict:
+    """Crop to the occupied bounding box + 5-cell margin, occupied = 100
+    (reference cells_to_occupancy_grid_msg, slam_node.cpp:279-297).
+
+    Host-side (NumPy ``grid``), used only for artifact export."""
+    g = np.asarray(grid)
+    occ = np.argwhere(g > 0)
+    if occ.size == 0:
+        return {
+            "resolution": config.resolution,
+            "width": 0,
+            "height": 0,
+            "origin_x": 0.0,
+            "origin_y": 0.0,
+            "data": np.zeros((0, 0), np.int8),
+        }
+    D = config.grid_dim
+    minx, miny = occ.min(axis=0) - 5
+    maxx, maxy = occ.max(axis=0) + 5
+    minx, miny = max(minx, 0), max(miny, 0)
+    maxx, maxy = min(maxx, D - 1), min(maxy, D - 1)
+    crop = g[minx : maxx + 1, miny : maxy + 1]
+    data = np.where(crop > 0, 100, 0).astype(np.int8)
+    return {
+        "resolution": config.resolution,
+        "width": data.shape[0],
+        "height": data.shape[1],
+        "origin_x": (minx - D // 2) * config.resolution + config.origin_x,
+        "origin_y": (miny - D // 2) * config.resolution + config.origin_y,
+        "data": data,
+    }

@@ -1,5 +1,6 @@
-"""Synthetic LiDAR worlds and scans (jax-free copy of the parts of
-``lidar_slam_tpu/utils/dataset.py`` the port's main path uses).
+"""Synthetic LiDAR worlds, scans and datasets (jax-free copy of the parts of
+``lidar_slam_tpu/utils/dataset.py`` the port's main path and command line
+use; the ring-pattern raycast simulator is not copied).
 
 A deterministic "city block" world (ground plane + building walls + poles),
 a closed circular route whose last eighth re-drives the start (a true
@@ -12,7 +13,12 @@ anything under ``lidar_slam_tpu`` imports ``jax``).
 
 from __future__ import annotations
 
+import os
+from typing import Tuple
+
 import numpy as np
+
+from .io import save_ply
 
 
 def generate_world(
@@ -242,3 +248,45 @@ class ScanRenderer:
     ) -> np.ndarray:
         sub = self.near(pose[0, 3], pose[1, 3], max_range)
         return render_scan(sub, pose, rng, max_range, max_points, noise)
+
+
+def make_dataset(
+    out_dir: str,
+    n_frames: int = 120,
+    seed: int = 0,
+    max_points: int = 20000,
+    fmt: str = "ply",
+) -> Tuple[str, np.ndarray]:
+    """Write a synthetic dataset: frames as 00000N.ply/.bin + poses_gt.txt
+    (KITTI 12-number rows). Returns (out_dir, gt_poses)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    half = route_half_for(n_frames)
+    world = generate_world(seed, route_half=half)
+    poses = generate_trajectory(n_frames, half=half)
+    for i in range(n_frames):
+        scan = render_scan(world, poses[i], rng, max_points=max_points)
+        if fmt == "bin":
+            data = np.concatenate(
+                [scan, np.zeros((len(scan), 1), np.float32)], axis=1
+            )
+            data.tofile(os.path.join(out_dir, f"{i:06d}.bin"))
+        else:
+            save_ply(os.path.join(out_dir, f"{i:06d}.ply"), scan)
+    save_poses_kitti(os.path.join(out_dir, "poses_gt.txt"), poses)
+    return out_dir, poses
+
+
+def save_poses_kitti(path: str, poses: np.ndarray) -> None:
+    """Write (n, 4, 4) poses in the KITTI odometry format, 12 numbers (3x4)
+    per row: the ground truth of a dataset and an exported trajectory."""
+    np.savetxt(path, poses[:, :3, :].reshape(len(poses), 12), fmt="%.6f")
+
+
+def load_gt_poses(path: str) -> np.ndarray:
+    """Read KITTI-format 12-number pose rows -> (n, 4, 4)."""
+    rows = np.loadtxt(path).reshape(-1, 3, 4)
+    n = len(rows)
+    poses = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    poses[:, :3, :] = rows
+    return poses

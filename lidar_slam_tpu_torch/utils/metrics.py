@@ -1,5 +1,5 @@
-"""Trajectory accuracy (jax-free copy of ``lidar_slam_tpu/utils/metrics.py``'s
-ATE)."""
+"""Trajectory accuracy: ATE and RPE (jax-free copy of
+``lidar_slam_tpu/utils/metrics.py``)."""
 
 from __future__ import annotations
 
@@ -29,3 +29,21 @@ def ate_rmse(est: np.ndarray, gt: np.ndarray, align: bool = True) -> float:
         R, t = umeyama_alignment(p_est, p_gt)
         p_est = p_est @ R.T + t
     return float(np.sqrt(np.mean(np.sum((p_est - p_gt) ** 2, axis=1))))
+
+
+def rpe(est: np.ndarray, gt: np.ndarray, delta: int = 1):
+    """Relative pose error over ``delta``-frame intervals.
+
+    Returns (trans_rmse [m], rot_rmse [rad])."""
+    n = min(len(est), len(gt))
+    dts, drs = [], []
+    for i in range(n - delta):
+        de = np.linalg.inv(est[i]) @ est[i + delta]
+        dg = np.linalg.inv(gt[i]) @ gt[i + delta]
+        err = np.linalg.inv(dg) @ de
+        dts.append(np.linalg.norm(err[:3, 3]))
+        c = np.clip((np.trace(err[:3, :3]) - 1) / 2, -1, 1)
+        drs.append(np.arccos(c))
+    return float(np.sqrt(np.mean(np.square(dts)))), float(
+        np.sqrt(np.mean(np.square(drs)))
+    )

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from lidar_slam_tpu.utils import dataset as jdataset
 from lidar_slam_tpu.utils import metrics as jmetrics
@@ -27,7 +28,10 @@ def test_port_never_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 22, names\n"
+        "for n in ('cli', '__main__', 'utils.io', 'utils.export', 'utils.checkpoint',"
+        " 'utils.native', 'ops.voxel'):\n"
+        "    assert p.__name__ + '.' + n in sys.modules, n\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('lidar_slam_tpu.') or m == 'lidar_slam_tpu']\n"
         "assert not bad, bad\n"
@@ -105,3 +109,54 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                        env=dict(os.environ, PYTHONPATH=""))
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_cli_refuses_to_run_without_cuda_unless_cpu_is_asked(tmp_path):
+    """``run`` without ``--cpu`` on a machine without CUDA exits non-zero
+    with a message, before it reads any data; it never moves to the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        return
+    r = subprocess.run(
+        [sys.executable, "-m", "lidar_slam_tpu_torch", "run", "--data-dir",
+         str(tmp_path), "--out-dir", str(tmp_path / "out")],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr and "--cpu" in r.stderr
+    assert not (tmp_path / "out").exists()
+
+
+def test_engine_default_device_is_the_card():
+    """``SlamEngine(cfg)`` (the JAX signature) targets CUDA: without a card
+    it raises, it does not run on the CPU."""
+    import torch
+
+    from lidar_slam_tpu_torch.config import tiny_config
+    from lidar_slam_tpu_torch.models.pipeline import SlamEngine
+
+    cfg = tiny_config(max_frames=8)
+    if torch.cuda.is_available():
+        assert SlamEngine(cfg).state.poses.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            SlamEngine(cfg)
+    assert SlamEngine(cfg, "cpu").state.poses.device.type == "cpu"
+
+
+def test_unported_options_fail_by_name():
+    """What is still to port raises and names its ROADMAP item; the options
+    this package now covers construct."""
+    from lidar_slam_tpu_torch.config import tiny_config
+    from lidar_slam_tpu_torch.models.pipeline import SlamEngine
+
+    base = tiny_config(max_frames=8)
+    for kw in (dict(knn_backend="slab"), dict(knn_backend="grid"),
+               dict(normal_method="knn"), dict(normal_stride=2)):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            SlamEngine(base.replace(**kw), "cpu")
+    for kw in (dict(optimize_midrun=True), dict(host_voxelize=False),
+               dict(host_voxelize=True, host_normals=True),
+               dict(normal_method="radius"), dict(knn_backend="xla"),
+               dict(knn_backend="pallas"), dict(knn_backend="slab_pallas")):
+        SlamEngine(base.replace(**kw), "cpu")

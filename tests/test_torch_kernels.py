@@ -40,7 +40,8 @@ def _exact(a, b):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lanes,S,T", [(1, 137, 501), (3, 1000, 5000),
-                                       (2, 4096, 32768)])
+                                       (2, 4096, 32768), (1, 32768, 32768),
+                                       (3, 32768, 32768)])
 def test_nn1_kernel_matches_plain(cuda, lanes, S, T):
     g = _gen(S)
     src = (g.normal(size=(lanes, S, 3)) * 20).astype(np.float32)

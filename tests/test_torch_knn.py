@@ -225,9 +225,14 @@ def test_nn1_plan_covers_the_target():
     """Every split of a K2 launch holds at least one tile and together they
     hold all of them; a few hundred blocks at the main path's shapes."""
     for lanes, S, Tp in [(3, 4096, 32768), (1, 4096, 32768), (1, 5, 512),
-                         (8, 100000, 1024), (2, 777, 30208)]:
+                         (8, 100000, 1024), (2, 777, 30208),
+                         (1, 32768, 32768), (3, 32768, 32768)]:
         n_split, per = knn_cuda._nn1_plan(lanes, S, Tp, 132)
         n_tiles = Tp // knn_cuda._NN1_TILE
         assert (n_split - 1) * per < n_tiles <= n_split * per
     assert knn_cuda._nn1_plan(3, 4096, 32768, 132) == (11, 6)
     assert knn_cuda._nn1_plan(1, 4096, 32768, 132) == (32, 2)
+    # the exact modes' shapes (fidelity odometry, full-density verification):
+    # 320 and 384 blocks, within the grid's limits
+    assert knn_cuda._nn1_plan(1, 32768, 32768, 132) == (5, 13)
+    assert knn_cuda._nn1_plan(3, 32768, 32768, 132) == (2, 32)

@@ -181,3 +181,46 @@ def test_residuals_match_jax():
     r_t = pg._residuals(st, torch.zeros((72, 6)), PoseGraphConfig())
     # f32 SE(3) logs of the same poses; whitened by sigmas down to 1e-3
     np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), rtol=1e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("n_loops,window", [(2, 4), (4, 4), (7, 4), (16, 4),
+                                            (5, 0), (5, 16), (5, 40)])
+def test_window_loops_matches_jax(n_loops, window):
+    """Leaf for leaf, for ``n_loops`` below, at and above the window, at
+    capacity, and the identity for ``window <= 0`` or ``>= capacity``."""
+    gt, jst, st = _graph(40, n_loops, seed=2)
+    assert st.n_loops == int(jst.n_loops) == n_loops
+    wj, wt = jpg.window_loops(jst, window), pg.window_loops(st, window)
+    if window <= 0 or window >= 16:
+        assert wt is st
+    for name in ("loop_from", "loop_to", "loop_rel", "loop_valid", "poses",
+                 "odom_rel", "odom_valid", "odom_scale"):
+        np.testing.assert_array_equal(getattr(wt, name).numpy(),
+                                      np.asarray(getattr(wj, name)), err_msg=name)
+    assert wt.n_loops == int(wj.n_loops)
+    assert wt.n_poses == int(wj.n_poses)
+
+
+@pytest.mark.parametrize("bound,window", [(2, 0), (2, 2), (None, 0)])
+def test_bounded_optimize_matches_jax(bound, window):
+    """The float32 LM of optimize-on-find on a drifting chain with loops,
+    bounded as the engine bounds it (and over the newest-loops window):
+    poses to 1e-4 (the f32 Woodbury algebra is summed in another order; the
+    first LM step alone, far from the optimum, would differ by millimetres
+    in both from the f64 step), the same ``converged``, which a bound that
+    stops the LM leaves False."""
+    n = 60
+    gt, jst, st = _graph(n, 3, seed=1)
+    jcfg, cfg = JPGConfig(), PoseGraphConfig()
+    if window:
+        jst, st = jpg.window_loops(jst, window), pg.window_loops(st, window)
+    res_j = jpg.optimize(jst, jcfg, max_iterations=bound)
+    res_t = pg.optimize(st, cfg, max_iterations=bound)
+    assert res_t.converged == bool(res_j.converged) == (bound is None)
+    if bound is not None:
+        assert res_t.iterations == int(res_j.iterations) == bound
+    np.testing.assert_allclose(res_t.poses[:n].numpy(),
+                               np.asarray(res_j.poses)[:n], atol=1e-4)
+    assert res_t.final_error == pytest.approx(float(res_j.final_error), rel=1e-3)
+    raw = st.poses[:n].numpy()
+    assert ate_rmse(res_t.poses[:n].numpy(), gt) < ate_rmse(raw, gt)

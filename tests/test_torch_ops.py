@@ -20,11 +20,12 @@ from lidar_slam_tpu.ops import normals as jnormals
 from lidar_slam_tpu.ops import occupancy as jocc
 from lidar_slam_tpu.ops import scan_context as jsc
 from lidar_slam_tpu.ops import se3 as jse3
+from lidar_slam_tpu.ops import voxel as jvoxel
 from lidar_slam_tpu.types import PointCloud as JPointCloud
 from lidar_slam_tpu_torch.config import ICPConfig, OccupancyGridConfig, ScanContextConfig
 from lidar_slam_tpu_torch.ops import icp, knn_cuda, linalg, normals, occupancy
 from lidar_slam_tpu_torch.ops import scan_context as sc
-from lidar_slam_tpu_torch.ops import se3
+from lidar_slam_tpu_torch.ops import se3, voxel
 from lidar_slam_tpu_torch.types import PointCloud
 from lidar_slam_tpu_torch.utils.dataset import (
     generate_trajectory,
@@ -140,6 +141,33 @@ def test_adaptive_normals_match_jax():
     cos = np.clip(np.abs(np.sum(n_j * n_t, axis=1)), 0.0, 1.0)[mask]
     ang = np.degrees(np.arccos(cos))
     # f32 moments summed in another order than the TPU's bf16x3 split
+    assert np.percentile(ang, 95) < 0.5, np.percentile(ang, 95)
+    np.testing.assert_array_equal(n_t[~mask], n_j[~mask])
+
+
+@pytest.mark.parametrize("window,per_point", [(512, False), (0, False),
+                                              (512, True)])
+def test_radius_normals_match_jax(window, per_point):
+    """``estimate_normals_radius`` (the ``normal_method="radius"`` estimator)
+    against the JAX one on the same x-sorted cloud: slab windows and the
+    dense sweep, a scalar and a per-point radius. Same tolerance as the
+    adaptive estimator's test: 95% of the valid normals within 0.5 degrees
+    up to sign (f32 moments summed in another order); invalid rows equal."""
+    (scan,), _ = _frames(frames=(5,))
+    pts, mask = _padded(scan)
+    radius = 1.5
+    if per_point:
+        radius = np.linspace(1.2, 3.0, len(pts)).astype(np.float32)
+    n_j = np.asarray(jnormals.estimate_normals_radius(
+        jnp.asarray(pts), jnp.asarray(mask), radius=jnp.asarray(radius),
+        window=window))
+    n_t = normals.estimate_normals_radius(
+        _t(pts), _t(mask), radius=_t(np.asarray(radius, np.float32)),
+        window=window).numpy()
+    assert n_t.shape == n_j.shape == pts.shape
+    np.testing.assert_allclose(np.linalg.norm(n_t[mask], axis=1), 1.0, atol=1e-4)
+    cos = np.clip(np.abs(np.sum(n_j * n_t, axis=1)), 0.0, 1.0)[mask]
+    ang = np.degrees(np.arccos(cos))
     assert np.percentile(ang, 95) < 0.5, np.percentile(ang, 95)
     np.testing.assert_array_equal(n_t[~mask], n_j[~mask])
 
@@ -264,3 +292,43 @@ def test_update_occupancy_exact(rng, sensor_x):
     if sensor_x > 50:
         assert int(drop_t) > 0
     np.testing.assert_array_equal(g_t.numpy(), np.asarray(g_j))
+
+
+# -- device voxelizer ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["fits", "over_capacity", "out_larger_than_n",
+                                  "pass_through", "clamped", "all_masked"])
+def test_voxel_downsample_matches_jax(rng, case):
+    """Mask and the set of occupied voxels exactly, centroids to 1e-5 m
+    (each voxel is summed over its sorted run, the order in which the JAX
+    CPU scatter-add visits it); the over-capacity strided pick, the
+    pass-through at ``voxel_size <= 0``, the +-511-voxel clamp."""
+    N, out, vs, scale = {
+        "fits": (4096, 2048, 0.5, 6.0),
+        "over_capacity": (4096, 512, 0.5, 30.0),
+        "out_larger_than_n": (1000, 2048, 0.5, 5.0),
+        "pass_through": (4096, 1024, 0.0, 10.0),
+        "clamped": (2048, 1024, 0.5, 400.0),
+        "all_masked": (512, 256, 0.5, 5.0),
+    }[case]
+    pts = (rng.normal(size=(N, 3)) * scale).astype(np.float32)
+    mask = np.arange(N) < (0 if case == "all_masked" else N - 300)
+    want = jvoxel.voxel_downsample(jnp.asarray(pts), jnp.asarray(mask), vs, out)
+    got = voxel.voxel_downsample(_t(pts), _t(mask), vs, out)
+    assert got.points.shape == (out, 3) and got.mask.shape == (out,)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    _close(got.points, want.points, rtol=0, atol=1e-5)
+    n = int(got.mask.sum())
+    if case == "over_capacity":
+        assert n == out
+    if vs > 0 and n:  # the same voxels, in ascending key order
+        k_t = voxel.voxel_keys(got.points[:n], got.mask[:n], vs).numpy()
+        k_j = voxel.voxel_keys(_t(np.asarray(want.points)[:n]), got.mask[:n],
+                               vs).numpy()
+        np.testing.assert_array_equal(k_t, k_j)
+        if case != "clamped":  # clamped points' centroids leave their voxel
+            assert np.all(np.diff(k_t) > 0)
+    # twice the same bits: the reduction has a fixed order
+    again = voxel.voxel_downsample(_t(pts), _t(mask), vs, out)
+    assert torch.equal(again.points, got.points)

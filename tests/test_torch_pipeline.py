@@ -119,6 +119,15 @@ def test_config_fields_match_jax():
         dataclasses.asdict(j)
     assert dataclasses.asdict(config.tiny_config()) == \
         dataclasses.asdict(jconfig.tiny_config())
+    for base_t, base_j in ((config.SlamConfig(), jconfig.SlamConfig()),
+                           (config.tiny_config(), jconfig.tiny_config())):
+        for mode in ("default", "fast", "fidelity"):
+            assert dataclasses.asdict(config.apply_mode(base_t, mode)) == \
+                dataclasses.asdict(_apply_mode(base_j, mode)), mode
+    assert config.apply_mode(config.SlamConfig(), "fidelity") == \
+        config.fidelity_mode(config.SlamConfig())
+    with pytest.raises(ValueError, match="mode"):
+        config.apply_mode(config.SlamConfig(), "quick")
 
 
 def test_loop_accept_sets_identical(jax_run, port_run):

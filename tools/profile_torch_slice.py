@@ -2,11 +2,16 @@
 """Where the time of the PyTorch port's main path goes, on one NVIDIA GPU.
 
 Runs the same full-size fast-mode slice as ``chip_smoke.py`` (500-frame
-corridor route, 32,768-point clouds, 4,608-frame DB) and reports:
+corridor route, 32,768-point clouds, 4,608-frame DB) or, with ``--mode
+fidelity`` / ``--mode default``, the exact modes as the command line
+configures them on ``chip_smoke.py``'s 120-frame route (65,536 raw points
+through the device voxelizer, full-density ICP on K2, optimize-on-find, the
+keyframe DB sized to the route), and reports:
 
 - per-stage wall time, each stage bracketed by ``torch.cuda.synchronize``
-  (ICP, normals, occupancy, DB write, loop ticks split firing / idle,
-  finalize) — the synchronisation itself costs a little;
+  (ICP, normals, the device voxelizer, occupancy, DB write, loop ticks
+  split firing / idle, optimize-on-find, finalize) — the synchronisation
+  itself costs a little;
 - a ``torch.profiler`` trace of two windows (steady odometry frames, and
   the revisit frames with firing loop ticks): device time by kernel and the
   device's busy share of the window's wall time;
@@ -17,7 +22,8 @@ corridor route, 32,768-point clouds, 4,608-frame DB) and reports:
 
 Run from the repository root on a machine with a card:
 
-    python3 tools/profile_torch_slice.py [--out build/profile/profile_slice.json]
+    python3 tools/profile_torch_slice.py [--mode fast|fidelity|default]
+        [--out build/profile/profile_slice.json]
 """
 
 from __future__ import annotations
@@ -35,8 +41,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile/profile_slice.json")
+    ap.add_argument("--mode", choices=["fast", "fidelity", "default"],
+                    default="fast")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -44,14 +53,33 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke
-    from lidar_slam_tpu_torch.config import slice_config
+    from lidar_slam_tpu_torch.config import SlamConfig, apply_mode, slice_config
     from lidar_slam_tpu_torch.models import loop_closure as lc
     from lidar_slam_tpu_torch.models import pipeline
     from lidar_slam_tpu_torch.ops import knn_cuda
 
     dev = torch.device("cuda:0")
     knn_cuda.load_library()
-    scans, _ = chip_smoke.prepare_route()
+    if args.mode == "fast":
+        scans, _, _ = chip_smoke.prepare_route()
+        cfg = slice_config()
+        windows = {"steady": (100, 160), "revisit": (440, 500)}
+        replay = (100, 124)  # the ICP calls replayed under the profiler
+    else:
+        from lidar_slam_tpu_torch.utils import dataset
+
+        n = chip_smoke.FID_FRAMES  # the route of make_dataset, in memory
+        half = dataset.route_half_for(n)
+        world = dataset.generate_world(0, route_half=half)
+        gt = dataset.generate_trajectory(n, half=half)
+        rng = np.random.default_rng(0)
+        scans = [dataset.render_scan(world, gt[i], rng,
+                                     max_points=chip_smoke.RAW_POINTS)
+                 for i in range(n)]
+        cfg = apply_mode(SlamConfig(), args.mode).replace(
+            max_raw_points=chip_smoke.RAW_POINTS, max_frames=n + 8)
+        windows = {"steady": (40, 60), "revisit": (100, 120)}
+        replay = (40, 52)
     n = len(scans)
 
     stage_s = defaultdict(float)
@@ -83,11 +111,12 @@ def main() -> int:
 
     orig_normals_fn = pipeline.normals_fn
     originals = (pipeline.icp_point_to_plane, pipeline.update_occupancy,
-                 lc.add_frame)
-    icp_calls = []  # the arguments of the ICP calls of frames 100-123
+                 lc.add_frame, pipeline.voxel_downsample,
+                 pipeline.optimize_on_find)
+    icp_calls = []  # the arguments of the ICP calls of the replay frames
 
     def icp_capture(*a, **kw):
-        if 100 <= stage_n["icp"] + 1 < 124:
+        if replay[0] <= stage_n["icp"] + 1 < replay[1]:
             icp_calls.append((a, kw))
         return originals[0](*a, **kw)
 
@@ -95,9 +124,11 @@ def main() -> int:
     pipeline.normals_fn = lambda cfg: timed("normals", orig_normals_fn(cfg))
     pipeline.update_occupancy = timed("occupancy", pipeline.update_occupancy)
     lc.add_frame = timed("db_write", lc.add_frame)
+    pipeline.voxel_downsample = timed("voxelizer", pipeline.voxel_downsample)
+    pipeline.optimize_on_find = timed("optimize_on_find",
+                                      pipeline.optimize_on_find)
     pipeline.loop_tick = tick
 
-    cfg = slice_config()
     eng = pipeline.SlamEngine(cfg, dev)
     eng.preload(scans)
     torch.cuda.synchronize()
@@ -111,7 +142,9 @@ def main() -> int:
     stages = {k: {"s": stage_s[k], "calls": stage_n[k]} for k in stage_s}
     stages["finalize"] = {"s": t2 - t1, "calls": 1}
     run_s = t1 - t0
-    accounted = sum(v["s"] for k, v in stages.items() if k != "finalize")
+    # optimize_on_find runs inside the firing loop ticks: not counted twice
+    accounted = sum(v["s"] for k, v in stages.items()
+                    if k not in ("finalize", "optimize_on_find"))
     stages["other_host"] = {"s": run_s - accounted, "calls": n}
 
     # profiler windows, without the stage timers' synchronisations: a fresh
@@ -119,10 +152,9 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    (pipeline.icp_point_to_plane, pipeline.update_occupancy,
-     lc.add_frame) = originals
+    (pipeline.icp_point_to_plane, pipeline.update_occupancy, lc.add_frame,
+     pipeline.voxel_downsample, pipeline.optimize_on_find) = originals
     pipeline.normals_fn, pipeline.loop_tick = orig_normals_fn, orig_tick
-    windows = {"steady": (100, 160), "revisit": (440, 500)}
     traces = {}
     for name, (a, b) in windows.items():
         eng = pipeline.SlamEngine(cfg, dev)
@@ -157,8 +189,6 @@ def main() -> int:
         }
 
     # launches of one odometry ICP iteration: replay the captured calls
-    import numpy as np
-
     hand_names = ("match_slab_kernel", "nn1_kernel")
     per_call = []
     for a, kw in icp_calls:
@@ -187,13 +217,13 @@ def main() -> int:
     out = {
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": chip_smoke.nvidia_smi(),
-        "frames": n, "run_preloaded_s": run_s, "finalize_s": t2 - t1,
+        "mode": args.mode, "frames": n, "run_preloaded_s": run_s, "finalize_s": t2 - t1,
         "stages": stages, "windows": traces, "icp_launches": icp_launches,
     }
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
-    print(json.dumps({k: out[k] for k in ("device", "nvidia_smi", "frames",
+    print(json.dumps({k: out[k] for k in ("device", "nvidia_smi", "mode", "frames",
                                           "run_preloaded_s", "finalize_s")}))
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]["s"]):
         print(f"stage {k:18s} {v['s']:9.3f} s  calls {v['calls']}")

@@ -21,7 +21,10 @@ Phases, one line each (plus details):
    events), the plain and whole-call times CUDA-event loops; each kernel's
    bound is computed from the card's SM count and clock;
    K2 also at the exact modes' shapes, 1 and 3 lanes x 32,768 x 32,768
-   (fidelity odometry, full-density verification);
+   (fidelity odometry, full-density verification); and at the batched
+   engine's: K1 over 4 ICP lanes in one launch (each lane exact against
+   the plain version and bit-identical to a one-lane launch on it), K2 over
+   12 lanes (a verification tranche of 4 lanes);
 4. the engine: the full-size fast-mode config (32,768-point clouds, a
    4,608-frame keyframe DB, 8192^2 grid) on a 500-frame corridor route whose
    last eighth revisits the start, through ``SlamEngine.preload ->
@@ -37,8 +40,14 @@ Phases, one line each (plus details):
    snapshot on the way: a loop must close, optimize-on-find must move the
    poses, K2 must run and K1 must not, ``frame_npts`` must be the voxel
    counts; **cli-resume**: the same command from the checkpoint must give
-   the uninterrupted run's final trajectory bit for bit. Each run prints its
-   scans/s, prep / upload / device times, peak device memory and launches.
+   the uninterrupted run's final trajectory bit for bit; **cli-batch**:
+   ``run-batch --mode fast --resident`` on 4 lanes of 200 frames, each
+   through its own world on one route with a revisit: every lane must close
+   a loop, and equal (loops, firing ticks, ATE within 0.01 m) the port's
+   single engine run on that lane's prepared scans, which are run after it
+   for comparison; the batched run must launch K1 fewer times than the
+   single runs together. Each run prints its scans/s, prep / upload /
+   device times, peak device memory and launches.
 
 The last lines are a JSON line of per-kernel results, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -72,6 +81,11 @@ FID_SNAPSHOT = 100
 # one frame of it is thinned to every 4th raw point, so that its voxel count
 # lies below the cloud pad and frame_npts can be told from the pad
 FID_SPARSE = 77
+# [cli-batch]: 4 lanes of 200 frames, each through its own world on one
+# shared route whose last 25 frames re-drive its start (the ticks of frames
+# 180 and 190 can close a loop)
+BATCH_LANES = 4
+BATCH_FRAMES = 200
 ARTIFACTS = ("trajectory.txt", "trajectory_tum.txt", "map.ply",
              "occupancy.npz", "occupancy.pgm", "metrics.jsonl")
 
@@ -273,9 +287,9 @@ def check_kernels(scans, dev):
     same(out_k, out_p, "K1 with an all-sentinel tile differs")
     err1 = max(err1, float((out_k[1] - out_p[1]).abs().max()))
     ms1 = time_graph_ms(
-        lambda: knn_cuda._slab_query_cuda(src, index, 256, 4096, 3.0))
+        lambda: knn_cuda._slab_query_cuda(src[None], index, 256, 4096, 3.0))
     pms1 = time_ms(
-        lambda: knn_cuda._slab_query_plain(src, index, 256, 4096, 3.0))
+        lambda: knn_cuda._slab_query_plain(src[None], index, 256, 4096, 3.0))
     k1_call = knn_cuda.SlabBackend().prepare_match(tgt, tmask, nrm)
     call1 = time_ms(lambda: k1_call(src), reps=200)
     b1, by1 = bound_ms(
@@ -290,7 +304,7 @@ def check_kernels(scans, dev):
         source="lidar_slam_tpu_torch/csrc/knn.cu",
         replaces=knn_cuda.MATCH_SLAB.replaces, max_abs_err=err1,
         ms=ms1, plain_ms=pms1, bound_ms=b1, bound_by=by1, library_ms=None,
-        call_ms=call1, shape="4096 x window 4096 of 32768",
+        call_ms=call1, shape="4096 x window 4096 of 32768", phase="engine",
     ))
 
     # K2: 3 lanes in one launch, each 4,096 sources vs 32,768 targets ---------
@@ -350,7 +364,7 @@ def check_kernels(scans, dev):
         name="nn1", route="cuda", source="lidar_slam_tpu_torch/csrc/knn.cu",
         replaces=knn_cuda.NN1.replaces, max_abs_err=err2,
         ms=ms2, plain_ms=pms2, bound_ms=b2, bound_by=by2, library_ms=None,
-        call_ms=call2, shape="3x4096x32768",
+        call_ms=call2, shape="3x4096x32768", phase="engine",
     ))
 
     # K2 at the exact modes' shapes: fidelity odometry is one lane of 32,768
@@ -385,8 +399,101 @@ def check_kernels(scans, dev):
             source="lidar_slam_tpu_torch/csrc/knn.cu",
             replaces=knn_cuda.NN1.replaces, max_abs_err=e, ms=ms_b,
             plain_ms=pms_b, bound_ms=b_b, bound_by=by_b, library_ms=None,
-            shape=shape,
+            shape=shape, phase="cli-fidelity",
         ))
+    results += check_lane_kernels(scans, cloud, rates, dev)
+    return results
+
+
+def check_lane_kernels(scans, cloud, rates, dev):
+    """The batched engine's shapes: K1 over 4 ICP lanes in one launch (each
+    lane against its own target, LUT and scale), exact against the plain
+    version and bit-identical, lane by lane, to a one-lane launch; K2 over a
+    verification tranche of 4 lanes (12 ICP lanes)."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.ops.normals import estimate_normals_adaptive
+    from lidar_slam_tpu_torch.types import PointCloud
+
+    def source(i):
+        """Frame i as the odometry ICP's source: sentinel-displaced, strided
+        to 4,096 rows."""
+        pts, mask = cloud(i)
+        pts = torch.where(mask[:, None], pts, torch.full_like(pts, 1.0e6))
+        return PointCloud(pts, mask).subsample(4096).points
+
+    def exact(a, b, what):
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            check(x.shape == y.shape and torch.equal(x, y), what)
+
+    B = BATCH_LANES
+    frames = [10 + (len(scans) - 40) * b // B for b in range(B)]
+    tgts = [cloud(i) for i in frames]
+    tgt = torch.stack([t for t, _ in tgts])
+    tmask = torch.stack([m for _, m in tgts])
+    nrm = torch.stack([estimate_normals_adaptive(t, m, r_min=1.2, window=4096,
+                                                 probe_stride=2)
+                       for t, m in tgts])
+    src = torch.stack([source(i + 1) for i in frames]).contiguous()
+    index = knn_cuda._build_slab_index(tgt, tmask, nrm)
+    before = knn_cuda.MATCH_SLAB.launches
+    out_k = knn_cuda._slab_query(src, index, 256, 4096, 3.0)
+    check(knn_cuda.MATCH_SLAB.launches == before + 1,
+          "K1 over lanes took more than one launch")
+    out_p = knn_cuda._slab_query(src, index, 256, 4096, 3.0,
+                                 knn_cuda._slab_query_plain)
+    exact(out_k, out_p, f"K1 over {B} lanes (qn, d2, idx, starts) differs "
+          "from the plain version")
+    for b in range(B):
+        one = knn_cuda._build_slab_index(tgt[b], tmask[b], nrm[b])
+        exact([x[b] for x in out_k],
+              knn_cuda._slab_query(src[b], one, 256, 4096, 3.0),
+              f"K1 lane {b} differs from a one-lane launch on it")
+    err1 = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(out_k, out_p))
+    ms1 = time_graph_ms(
+        lambda: knn_cuda._slab_query_cuda(src, index, 256, 4096, 3.0))
+    pms1 = time_ms(
+        lambda: knn_cuda._slab_query_plain(src, index, 256, 4096, 3.0), reps=5)
+    b1, by1 = bound_ms(B * 4096 * 4096,
+                       _nbytes(src, index.tgt8, index.lut, *out_k), rates)
+    log(f"[kernels] K1 match_slab {B} lanes x S=4096 x window 4096 of "
+        f"T=32768, one launch: exact (idx, d2, rows, starts) and each lane "
+        f"bit-identical to a one-lane launch; kernel {ms1:.4f} ms, bound "
+        f"{b1:.4f} ms ({by1}), plain {pms1:.4f} ms")
+    results = [dict(
+        name=f"match_slab@{B}x4096x32768", route="cuda",
+        source="lidar_slam_tpu_torch/csrc/knn.cu",
+        replaces=knn_cuda.MATCH_SLAB.replaces, max_abs_err=err1, ms=ms1,
+        plain_ms=pms1, bound_ms=b1, bound_by=by1, library_ms=None,
+        shape=f"{B} lanes x 4096 x window 4096 of 32768", phase="cli-batch",
+    )]
+
+    # K2: a tranche of every lane, 3 candidates each against its query
+    L = 3 * B
+    cands = [cloud(f) for f in range(30, 30 + 30 * L, 30)]
+    t12 = torch.stack([c for c, _ in cands])
+    m12 = torch.stack([m for _, m in cands])
+    s12 = src.repeat_interleave(3, dim=0).contiguous()
+    got, want = knn_cuda.nn1(s12, t12, m12), knn_cuda.nn1_torch(s12, t12, m12)
+    exact(got, want, f"K2 ({L} lanes) differs from the plain version")
+    err2 = float((got[1] - want[1]).abs().max())
+    query = knn_cuda.nn1.prepare(t12, m12)
+    ms2 = time_graph_ms(lambda: query(s12), reps=10)
+    pms2 = time_ms(lambda: knn_cuda.nn1_torch(s12, t12, m12), reps=3)
+    b2, by2 = bound_ms(L * 4096 * N_POINTS, _nbytes(s12, t12, m12, *got), rates)
+    log(f"[kernels] K2 nn1 {L} lanes x S=4096 x T={N_POINTS} (a verification "
+        f"tranche of {B} lanes): exact (idx, d2); kernel {ms2:.4f} ms, bound "
+        f"{b2:.4f} ms ({by2}), plain {pms2:.4f} ms")
+    results.append(dict(
+        name=f"nn1@{L}x4096x{N_POINTS}", route="cuda",
+        source="lidar_slam_tpu_torch/csrc/knn.cu",
+        replaces=knn_cuda.NN1.replaces, max_abs_err=err2, ms=ms2,
+        plain_ms=pms2, bound_ms=b2, bound_by=by2, library_ms=None,
+        shape=f"{L}x4096x{N_POINTS}", phase="cli-batch",
+    ))
     return results
 
 
@@ -406,15 +513,16 @@ def run_engine(scans, gt, dev):
     eng = SlamEngine(cfg, dev)
     eng.preload(scans)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run_preloaded()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    traj_odo = eng.trajectory()
-    t2 = time.perf_counter()
-    eng.finalize()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
+    with KernelShapes() as shapes:
+        t0 = time.perf_counter()
+        eng.run_preloaded()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        traj_odo = eng.trajectory()
+        t2 = time.perf_counter()
+        eng.finalize()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
     launches = {k.name: k.launches for k in knn_cuda.KERNELS}
     traj = eng.trajectory()
     m = eng.metrics()
@@ -437,29 +545,57 @@ def run_engine(scans, gt, dev):
           f"a kernel of the main path was not launched: {launches}")
     check(ate1 <= ate0 + 0.05, f"finalize made ATE worse: {ate0} -> {ate1}")
     return dict(launches=launches, loops=m["loop_count"],
-                verify_fired=m["verify_fired"], ate=ate1)
+                verify_fired=m["verify_fired"], ate=ate1, spy=shapes)
 
 
-class RunSpy:
+class KernelShapes:
+    """Launches of each kernel by ``lanes x sources``, counted while a
+    ``with`` block runs (it wraps the kernels' ``launch`` and calls the
+    originals): ``shapes["nn1"]["3x4096"]``."""
+
+    def __init__(self):
+        self.shapes = {"match_slab": {}, "nn1": {}}
+
+    def __enter__(self):
+        from lidar_slam_tpu_torch.ops import knn_cuda
+
+        # the lanes and sources of a launch: lst_match_slab(src, lanes, S,
+        # ...), lst_nn1(src, soa, lanes, S, ...)
+        where = {"match_slab": 1, "nn1": 2}
+        self._orig = {k: k.launch for k in knn_cuda.KERNELS}
+        for k in knn_cuda.KERNELS:
+            def launch(*args, k=k, orig=k.launch, at=where[k.name]):
+                orig(*args)
+                key = f"{args[at]}x{args[at + 1]}"
+                counts = self.shapes[k.name]
+                counts[key] = counts.get(key, 0) + 1
+            k.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        for k, orig in self._orig.items():
+            k.launch = orig
+
+
+class RunSpy(KernelShapes):
     """What a command-line run does not write to its artifacts, recorded
     while it runs in this process: the trajectory just before and after
     ``finalize``, the engine's counters, every optimize-on-find chunk (LM
-    iterations and the largest pose move), and K2's launches by ``lanes x
-    sources``. It patches the package's functions for the length of a
-    ``with`` block and calls the originals."""
+    iterations and the largest pose move), and each kernel's launches by
+    ``lanes x sources``. It patches the package's functions for the length
+    of a ``with`` block and calls the originals."""
 
     def __init__(self):
+        super().__init__()
         self.before = self.after = self.metrics = None
         self.chunks = []
-        self.nn1_shapes = {}
 
     def __enter__(self):
         from lidar_slam_tpu_torch.models import pipeline
-        from lidar_slam_tpu_torch.ops import knn_cuda
 
-        self._orig = (pipeline.SlamEngine.finalize, pipeline.optimize_on_find,
-                      knn_cuda.NN1.launch)
-        fin, opt, launch = self._orig
+        super().__enter__()
+        self._engine = (pipeline.SlamEngine.finalize, pipeline.optimize_on_find)
+        fin, opt = self._engine
         spy = self
 
         def finalize(engine):
@@ -476,22 +612,15 @@ class RunSpy:
                                    converged=res.converged, moved=float(move)))
             return res
 
-        def nn1_launch(*args):
-            launch(*args)
-            key = f"{args[2]}x{args[3]}"  # lanes x sources of this launch
-            spy.nn1_shapes[key] = spy.nn1_shapes.get(key, 0) + 1
-
         pipeline.SlamEngine.finalize = finalize
         pipeline.optimize_on_find = optimize_on_find
-        knn_cuda.NN1.launch = nn1_launch
         return self
 
     def __exit__(self, *exc):
         from lidar_slam_tpu_torch.models import pipeline
-        from lidar_slam_tpu_torch.ops import knn_cuda
 
-        (pipeline.SlamEngine.finalize, pipeline.optimize_on_find,
-         knn_cuda.NN1.launch) = self._orig
+        pipeline.SlamEngine.finalize, pipeline.optimize_on_find = self._engine
+        super().__exit__(*exc)
 
 
 def run_cli(tag, argv, n_frames, dev):
@@ -541,7 +670,7 @@ def run_cli(tag, argv, n_frames, dev):
         + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
         + f"; peak device memory {peak / 2**30:.3f} GiB; ATE "
         f"{summary['ate_rmse']:.4f} m; loops {summary['loop_count']}; launches "
-        f"{launches}, K2 by lanes x sources {spy.nn1_shapes}; map.ply "
+        f"{launches}, by lanes x sources {spy.shapes}; map.ply "
         f"{len(cloud)} points")
     return dict(summary=summary, rows=rows, launches=launches, spy=spy,
                 out_dir=out_dir)
@@ -614,8 +743,8 @@ def run_cli_fidelity(work, dev):
     check(s["loop_count"] >= 1, "[cli-fidelity] no loop closed on the revisit")
     check(out["launches"]["nn1"] > 0 and out["launches"]["match_slab"] == 0,
           f"[cli-fidelity] expected K2 only: {out['launches']}")
-    check(set(spy.nn1_shapes) == {f"1x{N_POINTS}", f"3x{N_POINTS}"},
-          f"[cli-fidelity] K2 ran at other shapes: {spy.nn1_shapes}")
+    check(set(spy.shapes["nn1"]) == {f"1x{N_POINTS}", f"3x{N_POINTS}"},
+          f"[cli-fidelity] K2 ran at other shapes: {spy.shapes['nn1']}")
     check(len(spy.chunks) >= 1 and max(c["moved"] for c in spy.chunks) > 1e-4,
           f"[cli-fidelity] optimize-on-find did not move a pose: {spy.chunks}")
     ate0, ate1 = ate_rmse(spy.before, gt), ate_rmse(spy.after, gt)
@@ -655,6 +784,177 @@ def run_cli_fidelity(work, dev):
     check(res["summary"]["loop_count"] == s["loop_count"],
           "[cli-resume] the resumed run found other loops")
     return out, res
+
+
+
+def render_lane(b: int, data: str, n_frames: int, raw_points: int) -> None:
+    """Lane ``b`` of [cli-batch] as ``.ply`` frames with ``poses_gt.txt``:
+    world ``b`` on the shared route of ``n_frames``."""
+    import numpy as np
+
+    from lidar_slam_tpu_torch.utils.dataset import (
+        ScanRenderer,
+        generate_trajectory,
+        generate_world,
+        route_half_for,
+        save_poses_kitti,
+    )
+    from lidar_slam_tpu_torch.utils.io import save_ply
+
+    half = route_half_for(n_frames)
+    gt = generate_trajectory(n_frames, half=half)
+    renderer = ScanRenderer(generate_world(b, route_half=half, corridor=60.0))
+    rng = np.random.default_rng(b)
+    os.makedirs(data)
+    for i in range(n_frames):
+        save_ply(os.path.join(data, f"{i:06d}.ply"),
+                 renderer.render(gt[i], rng, max_points=raw_points))
+    save_poses_kitti(os.path.join(data, "poses_gt.txt"), gt)
+
+
+def run_cli_batch(work, dev):
+    """[cli-batch]: ``run-batch --mode fast --resident`` on 4 lanes of
+    different worlds, in this process; then the port's single engine on each
+    lane's prepared scans (those the command line handed the batched engine)
+    with the same configuration. Each lane must close a loop and give the
+    single run's loops and firing ticks, its ATE within 0.01 m; the batched
+    run must launch K1 fewer times than the four single runs together."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch import cli
+    from lidar_slam_tpu_torch.models.pipeline import SlamEngine
+    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.parallel import batched
+    from lidar_slam_tpu_torch.utils.dataset import load_gt_poses
+    from lidar_slam_tpu_torch.utils.metrics import ate_rmse
+
+    B, N = BATCH_LANES, BATCH_FRAMES
+    names = [f"lane{b}" for b in range(B)]
+    dirs = [os.path.join(work, n) for n in names]
+    t0 = time.perf_counter()
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(B, mp_context=spawn) as pool:
+        list(pool.map(render_lane, range(B), dirs, [N] * B, [RAW_POINTS] * B))
+    log(f"[prep] {B} x {N} frames rendered and written as .ply in "
+        f"{time.perf_counter() - t0:.1f} s ({B} processes)")
+    gt = load_gt_poses(os.path.join(dirs[0], "poses_gt.txt"))
+
+    # the command line's batched engine, the prepared scans it is given and
+    # its trajectories before finalize
+    seen = {}
+    Engine = batched.BatchedSlamEngine
+    preload, finalize = Engine.preload, Engine.finalize
+
+    def spy_preload(engine, seqs, frame0=0):
+        seen.update(engine=engine, seqs=seqs)
+        return preload(engine, seqs, frame0)
+
+    def spy_finalize(engine):
+        seen["odometry"] = engine.trajectories()
+        return finalize(engine)
+
+    out_dir = os.path.join(work, "out_batch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in knn_cuda.KERNELS:
+        k.launches = 0
+    Engine.preload, Engine.finalize = spy_preload, spy_finalize
+    try:
+        with KernelShapes() as spy:
+            rc = cli.main(["run-batch", "--data-dirs", ",".join(dirs),
+                           "--out-dir", out_dir, "--mode", "fast", "--resident"])
+        torch.cuda.synchronize()
+    finally:
+        Engine.preload, Engine.finalize = preload, finalize
+    launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, f"[cli-batch] the command line returned {rc}")
+    files = ["metrics.json"] + [f"trajectory_{n}.txt" for n in names]
+    check(sorted(os.listdir(out_dir)) == sorted(files),
+          f"[cli-batch] wrote {sorted(os.listdir(out_dir))}")
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        m = json.load(f)
+    check(m["sequences"] == B and m["frames"] == N and m["mode"] == "fast",
+          f"[cli-batch] metrics.json: {m}")
+    for n in names:
+        t = np.loadtxt(os.path.join(out_dir, f"trajectory_{n}.txt"))
+        check(t.shape == (N, 12) and bool(np.isfinite(t).all()),
+              f"[cli-batch] trajectory_{n}.txt is not one finite pose per frame")
+    check(all(n >= 1 for n in m["loops"]),
+          f"[cli-batch] a lane closed no loop: {m['loops']}")
+    check(launches["match_slab"] > 0 and launches["nn1"] > 0,
+          f"[cli-batch] a kernel was not launched: {launches}")
+    eng = seen.pop("engine")
+    lanes_m, lanes_t, cfg = eng.metrics(), eng.trajectories(), eng.config
+    del eng  # the single runs' peak memory is their own
+    odo_b = [ate_rmse(t, gt) for t in seen["odometry"]]
+    r = m["resident"]
+    log(f"[cli-batch] {B} lanes x {N} frames: {m['scans_per_sec_aggregate']:.3f} "
+        f"scans/s aggregate, {m['scans_per_sec_per_lane']:.3f} per lane over "
+        f"{m['wall_sec']:.3f} s; prep {r['prep_sec']:.3f}, upload "
+        f"{r['upload_sec']:.3f}, device {r['device_sec']:.3f} s "
+        f"({r['scans_per_sec_device_aggregate']:.3f} scans/s device-side "
+        f"aggregate, {N / r['device_sec']:.3f} per lane); peak device memory "
+        f"{peak / 2**30:.3f} GiB; loops {m['loops']}, verify_fired "
+        f"{[x['verify_fired'] for x in lanes_m]}; ATE before finalize "
+        f"{[round(a, 4) for a in odo_b]}, after {m['ate_rmse']}; launches "
+        f"{launches}, by lanes x sources {spy.shapes}")
+
+    # the same prepared scans and configuration through the single engine
+    one_launches = {k.name: 0 for k in knn_cuda.KERNELS}
+    t_up = t_dev = 0.0
+    one_peak = 0
+    with KernelShapes() as one_spy:
+        for b in range(B):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for k in knn_cuda.KERNELS:
+                k.launches = 0
+            one = SlamEngine(cfg, dev)
+            t0 = time.perf_counter()
+            one.preload(seen["seqs"][b])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            one.run_preloaded()
+            odo = one.trajectory()
+            one.finalize()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            t_up, t_dev = t_up + (t1 - t0), t_dev + (t2 - t1)
+            one_peak = max(one_peak, torch.cuda.max_memory_allocated(dev))
+            for k in knn_cuda.KERNELS:
+                one_launches[k.name] += k.launches
+            om, traj = one.metrics(), one.trajectory()
+            ate, ate_b = ate_rmse(traj, gt), m["ate_rmse"][names[b]]
+            diff = float(np.abs(traj - lanes_t[b]).max())
+            log(f"[cli-batch] lane {b} alone: {N / (t2 - t1):.3f} scans/s "
+                f"device-side ({t2 - t1:.3f} s); loops {om['loop_count']} "
+                f"(batched {lanes_m[b]['loop_count']}), verify_fired "
+                f"{om['verify_fired']} (batched {lanes_m[b]['verify_fired']}), "
+                f"ATE {ate_rmse(odo, gt):.4f} m before finalize, {ate:.4f} "
+                f"after (batched {ate_b:.4f}); largest pose "
+                f"difference from the batched lane {diff:.3e}"
+                + (" (bit-identical)" if diff == 0.0 else ""))
+            check(om["loop_count"] == lanes_m[b]["loop_count"],
+                  f"[cli-batch] lane {b}: loops differ from the single engine")
+            check(om["verify_fired"] == lanes_m[b]["verify_fired"],
+                  f"[cli-batch] lane {b}: verify_fired differs from the "
+                  "single engine")
+            check(abs(ate - ate_b) <= 0.01,
+                  f"[cli-batch] lane {b}: ATE {ate_b} batched, {ate} alone")
+    log(f"[cli-batch] the {B} lanes alone, one after another: "
+        f"{B * N / t_dev:.3f} scans/s device-side ({t_dev:.3f} s), upload "
+        f"{t_up:.3f} s, peak device memory {one_peak / 2**30:.3f} GiB; "
+        f"launches {one_launches}, by lanes x sources {one_spy.shapes}")
+    check(launches["match_slab"] < one_launches["match_slab"],
+          f"[cli-batch] K1 launches {launches['match_slab']} batched, "
+          f"{one_launches['match_slab']} in the single runs")
+    return dict(launches=launches, spy=spy,
+                singles=dict(launches=one_launches, spy=one_spy))
 
 
 def main() -> int:
@@ -698,28 +998,30 @@ def main() -> int:
         fast = run_cli_fast(raw, gt, engine, work, dev)
         del raw
         fid, resumed = run_cli_fidelity(work, dev)
+        batch = run_cli_batch(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    # launches: the engine phase's for K1 and K2 at fast mode's shapes, the
-    # fidelity run's (by lanes x sources) for K2 at the exact modes' shapes
-    runs = {"cli-fast": fast, "cli-fidelity": fid, "cli-resume": resumed}
+    # launches by phase: the whole kernel's for the unshaped entries, this
+    # shape's (lanes x sources) for the others; "launches" is the count in
+    # the phase whose main path gives the entry its shape
+    runs = {"engine": engine, "cli-fast": fast, "cli-fidelity": fid,
+            "cli-resume": resumed, "cli-batch": batch,
+            "cli-batch-singles": batch["singles"]}
     for r in results:
         name, _, shape = r["name"].partition("@")
-        if shape:  # this shape's launches only (the engine phase has none)
+        if shape:
             key = "x".join(shape.split("x")[:2])
-            r["launches"] = fid["spy"].nn1_shapes.get(key, 0)
-            check(r["launches"] > 0,
-                  f"K2 was not launched at {shape} in the fidelity run")
             r["launches_by_phase"] = {
-                tag: run["spy"].nn1_shapes.get(key, 0)
+                tag: run["spy"].shapes[name].get(key, 0)
                 for tag, run in runs.items()
             }
         else:
-            r["launches"] = engine["launches"][name]
             r["launches_by_phase"] = {
-                "engine": engine["launches"][name],
-                **{tag: run["launches"][name] for tag, run in runs.items()},
+                tag: run["launches"][name] for tag, run in runs.items()
             }
+        r["launches"] = r["launches_by_phase"][r["phase"]]
+        check(r["launches"] > 0,
+              f"{r['name']} was not launched in the {r['phase']} run")
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

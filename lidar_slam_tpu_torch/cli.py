@@ -10,11 +10,13 @@ occupancy / metrics.jsonl).
 
 Subcommands:
   run           full SLAM over a directory of .ply/.bin frames
+  run-batch     several sequences at once on one device (BatchedSlamEngine)
   convert       KITTI .bin -> .ply
   make-dataset  generate the synthetic loop dataset
 
-``run`` works on an NVIDIA GPU unless ``--cpu`` is given; without CUDA and
-without ``--cpu`` it exits with an error instead of moving to the CPU.
+``run`` and ``run-batch`` work on an NVIDIA GPU unless ``--cpu`` is given;
+without CUDA and without ``--cpu`` they exit with an error instead of moving
+to the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +30,31 @@ import time
 from .config import MODES
 
 KNN_BACKENDS = ("auto", "pallas", "xla", "slab", "grid", "slab_pallas")
+DISPATCH_BLOCK_NOTICE = (
+    "--dispatch-block has no effect here: this engine runs every scan, and "
+    "every loop tick right after its frame, as one sequence of device "
+    "launches")
+
+
+def _device(cpu: bool, cmd: str):
+    """The run's device: the CPU with ``--cpu``, else the card; ``None``
+    (after a message) when there is no card."""
+    import torch
+
+    if cpu:
+        return torch.device("cpu")
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    print(f"error: CUDA is not available; `{cmd}` works on an NVIDIA GPU "
+          "unless --cpu is given", file=sys.stderr)
+    return None
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _build_config(args):
@@ -106,24 +133,17 @@ def _make_loader(cfg, frames, start_frame: int = 0):
 
 def cmd_run(args) -> int:
     import numpy as np
-    import torch
 
     from .models.pipeline import SlamEngine, normals_fn, resolve_nn1
     from .utils import export
     from .utils.io import discover_frames, load_scan
 
-    if args.cpu:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda")
-    else:
-        print("error: CUDA is not available; `run` works on an NVIDIA GPU "
-              "unless --cpu is given", file=sys.stderr)
+    device = _device(args.cpu, "run")
+    if device is None:
         return 2
 
     def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device)
 
     frames = discover_frames(args.data_dir)
     if not frames:
@@ -141,9 +161,7 @@ def cmd_run(args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.dispatch_block is not None:
-        print("--dispatch-block has no effect here: this engine runs every "
-              "scan, and every loop tick right after its frame, as one "
-              "sequence of device launches", file=sys.stderr)
+        print(DISPATCH_BLOCK_NOTICE, file=sys.stderr)
     if not args.resume and (not args.max_frames
                             or cfg.max_frames < len(frames)):
         # right-size the keyframe-DB capacity to the dataset (+ slack): the
@@ -371,6 +389,184 @@ def _push_frames(args, cfg, engine, loader, indices, period: float = 0.0,
                 time.sleep(period - dt)
 
 
+def _lane_names(dirs: list) -> list:
+    """Per-lane export names from sequence directories; a basename that
+    occurs twice is told apart by the lane index (or the two lanes would
+    write one trajectory file and one ATE entry)."""
+    base = [os.path.basename(os.path.normpath(d)) or f"seq{b}"
+            for b, d in enumerate(dirs)]
+    return [f"lane{b}_{n}" if base.count(n) > 1 else n
+            for b, n in enumerate(base)]
+
+
+def cmd_run_batch(args) -> int:
+    """Several sequences at once (BASELINE.md configuration ladder #4): the
+    same modes, host-voxelize prep in loader workers, ``--resident`` with
+    ``--warmup-run``, per-lane ATE and trajectories, as ``lidar_slam_tpu
+    run-batch``. Lanes are cut to the shortest sequence."""
+    import json
+
+    import numpy as np
+
+    from .config import SlamConfig, apply_mode
+    from .parallel import BatchedSlamEngine
+    from .utils import export
+    from .utils.io import discover_frames, load_scan
+    from .utils.native import FrameLoader
+
+    device = _device(args.cpu, "run-batch")
+    if device is None:
+        return 2
+    dirs = [d for d in args.data_dirs.split(",") if d]
+    seqs = [discover_frames(d) for d in dirs]
+    if not all(seqs):
+        print("empty sequence directory", file=sys.stderr)
+        return 1
+    n = min(len(s) for s in seqs)
+    if args.frames:
+        n = min(n, args.frames)
+
+    cfg = apply_mode(SlamConfig(), args.mode)
+    cfg = cfg.replace(
+        voxel_size=args.voxel_size,
+        max_frames=n + 8,  # right-size the DB-linear costs, as `run` does
+    )
+    if args.max_points:
+        cfg = cfg.replace(max_points=args.max_points, lc_cloud_points=0)
+    if args.lc_points:
+        cfg = cfg.replace(lc_cloud_points=args.lc_points)
+    if args.dispatch_block is not None:
+        cfg = cfg.replace(dispatch_block=args.dispatch_block)
+        print(DISPATCH_BLOCK_NOTICE, file=sys.stderr)
+    if not args.no_host_voxelize:
+        cfg = cfg.replace(host_voxelize=True)
+    if args.max_raw_points:
+        cfg = cfg.replace(max_raw_points=args.max_raw_points)
+    else:
+        n0 = max(len(load_scan(s[0][1])) for s in seqs)
+        cap = 1 << max(int(np.ceil(np.log2(max(n0, 1024)))), 10)
+        cfg = cfg.replace(max_raw_points=cap)
+    if args.warmup_run and not args.resident:
+        print("--warmup-run has no effect without --resident (the streaming "
+              "batched run has no warm-up pass)", file=sys.stderr)
+
+    loaders = [
+        FrameLoader(
+            [p for _, p in seq[:n]],
+            cap=cfg.max_points if cfg.host_voxelize else cfg.max_raw_points,
+            window=8, threads=2,
+            voxel=cfg.voxel_size if cfg.host_voxelize else 0.0,
+            raw_cap=cfg.max_raw_points,
+        )
+        for seq in seqs
+    ]
+    extra = {}
+    t_warm = 0.0
+    resident_split = None
+    t_start = time.perf_counter()
+    if args.resident:
+        t0 = time.perf_counter()
+        prepared = [[ld.get(i) for i in range(n)] for ld in loaders]
+        for ld in loaders:
+            ld.close()
+        t_prep = time.perf_counter() - t0
+        print(f"prep: {t_prep:.1f}s", file=sys.stderr, flush=True)
+        if not args.max_points:
+            # right-size the cloud pad to the prepared maximum (`run`'s
+            # auto-sizing, over all lanes)
+            mx = max(max(len(p) for p in lane) for lane in prepared)
+            cap = max(4096, 1 << int(np.ceil(np.log2(max(mx, 1)))))
+            if cap < cfg.max_points:
+                print(f"auto-sized max_points: {cfg.max_points} -> {cap}",
+                      file=sys.stderr)
+                cfg = cfg.replace(max_points=cap)
+        eng = BatchedSlamEngine(cfg, len(dirs), device,
+                                optimize_midrun=cfg.optimize_midrun)
+        t0 = time.perf_counter()
+        eng.preload(prepared)
+        _sync(device)
+        t_up = time.perf_counter() - t0
+        print(f"upload: {t_up:.1f}s", file=sys.stderr, flush=True)
+        if args.warmup_run:
+            t0 = time.perf_counter()
+            eng.run_preloaded()
+            eng.finalize()
+            _sync(device)
+            t_warm = time.perf_counter() - t0
+            print(f"warmup run (build/load + run): {t_warm:.1f}s",
+                  file=sys.stderr, flush=True)
+            eng.reset()
+        t0 = time.perf_counter()
+        eng.run_preloaded()
+        eng.finalize()
+        _sync(device)
+        t_dev = time.perf_counter() - t0
+        print(
+            f"resident run: prep {t_prep:.1f}s + upload {t_up:.1f}s + device "
+            f"{t_dev:.1f}s ({n * len(dirs) / t_dev:.1f} scans/s aggregate "
+            "device-side)"
+        )
+        resident_split = {
+            "prep_sec": t_prep, "upload_sec": t_up, "device_sec": t_dev,
+            "scans_per_sec_device_aggregate": n * len(dirs) / t_dev,
+        }
+    else:
+        eng = BatchedSlamEngine(cfg, len(dirs), device,
+                                optimize_midrun=cfg.optimize_midrun)
+        for i in range(n):
+            eng.push_scans([ld.get(i) for ld in loaders])
+        for ld in loaders:
+            ld.close()
+        _sync(device)
+        t_push = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        eng.finalize()
+        _sync(device)
+        extra.update(push_sec=t_push, finalize_sec=time.perf_counter() - t0)
+    wall = time.perf_counter() - t_start - t_warm
+    os.makedirs(args.out_dir, exist_ok=True)
+    trajs = eng.trajectories()
+    total = n * len(dirs)
+    metrics = {
+        "sequences": len(dirs), "frames": n,
+        "wall_sec": wall, "scans_per_sec_aggregate": total / wall,
+        "scans_per_sec_per_lane": n / wall,
+        "loops": list(eng.state.loop_count),
+        "mode": args.mode,
+        **extra,
+    }
+    if resident_split is not None:
+        metrics["resident"] = resident_split
+    from .utils.dataset import load_gt_poses
+    from .utils.metrics import ate_rmse
+
+    lane_names = _lane_names(dirs)
+    for b, d in enumerate(dirs):
+        name = lane_names[b]
+        export.save_trajectory_kitti(
+            os.path.join(args.out_dir, f"trajectory_{name}.txt"), trajs[b]
+        )
+        gt_path = os.path.join(d, "poses_gt.txt")
+        if os.path.exists(gt_path):
+            gt = load_gt_poses(gt_path)
+            m = min(len(gt), len(trajs[b]))
+            metrics.setdefault("ate_rmse", {})[name] = float(
+                ate_rmse(trajs[b][:m], gt[:m])
+            )
+    with open(os.path.join(args.out_dir, "metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    if "ate_rmse" in metrics:
+        print("ATE RMSE: " + ", ".join(
+            f"{k}={v:.3f} m" for k, v in metrics["ate_rmse"].items()
+        ))
+    print(
+        f"done: {len(dirs)} sequences x {n} frames in {wall:.1f}s "
+        f"({total / wall:.1f} scans/s aggregate, "
+        f"{n / wall:.1f}/lane) -> {args.out_dir}"
+    )
+    return 0
+
+
 def cmd_convert(args) -> int:
     from .utils.io import convert_bin_to_ply, convert_directory
 
@@ -484,6 +680,43 @@ def main(argv=None) -> int:
                    help="check every new pose and ICP error for finiteness "
                    "and stop at the first bad frame (a device sync per frame)")
     r.set_defaults(fn=cmd_run)
+
+    b = sub.add_parser(
+        "run-batch", help="run K sequences concurrently (lanes of one engine)"
+    )
+    b.add_argument("--data-dirs", required=True,
+                   help="comma-separated frame directories")
+    b.add_argument("--out-dir", default="slam_batch_out")
+    b.add_argument("--voxel-size", type=float, default=0.5)
+    b.add_argument("--max-points", type=int, default=0,
+                   help="cloud pad (0 = auto-size from the data with "
+                   "--resident, else the config default)")
+    b.add_argument("--lc-points", type=int, default=0,
+                   help="loop-closure DB cloud size (0 = same as max-points)")
+    b.add_argument("--max-raw-points", type=int, default=0,
+                   help="raw scan pad (0 = auto-size from the first frames)")
+    b.add_argument("--frames", type=int, default=0)
+    b.add_argument(
+        "--mode", choices=MODES, default="default",
+        help="same presets as `run` (fast = the throughput configuration: "
+        "warm-started subsampled ICP, the fused slab-match kernel, deferred "
+        "optimization)",
+    )
+    b.add_argument("--dispatch-block", type=int, default=None,
+                   help="accepted for compatibility with lidar_slam_tpu; it "
+                   "has no effect here and says so")
+    b.add_argument("--resident", action="store_true",
+                   help="upload every lane's prepared dataset to the device "
+                   "once and run without per-scan transfers")
+    b.add_argument("--warmup-run", action="store_true",
+                   help="(with --resident) one untimed pass first to absorb "
+                   "what a process pays once (CUDA context, kernel build)")
+    b.add_argument("--no-host-voxelize", action="store_true",
+                   help="voxelize on device instead of in the loader workers")
+    b.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the default is the GPU, and the "
+                   "run fails without one)")
+    b.set_defaults(fn=cmd_run_batch)
 
     c = sub.add_parser("convert", help="KITTI .bin -> .ply")
     c.add_argument("input")

@@ -317,14 +317,20 @@ nn1_kernel(const float* __restrict__ src,   // (B, S, 3)
 // bf16x3 one-hot matmul for this gather), so they are bit-identical to
 // tgt[idx] and normals[idx].
 //
-// Bound on this card: operations. S x window evaluations of 8 FP32
-// instructions at 33.5 T/s: 4,096 x 4,096 evaluations are 4 us. The bytes
-// (the sources, the packed target, the LUT and the outputs, each once) are
-// 1.3 MB, under a microsecond of HBM time. At this size a chain of
-// dependent global loads (source x, LUT, window, scratch keys, matched row)
-// weighs as much as the arithmetic.
+// Bound on this card: operations. lanes x S x window evaluations of 8 FP32
+// instructions at 33.5 T/s: 4,096 x 4,096 evaluations are 4 us a lane. The
+// bytes (the sources, the packed target, the LUT and the outputs, each once)
+// are 1.3 MB a lane, under a microsecond of HBM time. At this size a chain
+// of dependent global loads (source x, LUT, window, scratch keys, matched
+// row) weighs as much as the arithmetic.
 //
 // Design:
+//  - lanes: a batched engine runs B sequences in lockstep, each ICP lane
+//    with its own target, LUT and scale. The lane is the grid's z
+//    dimension: one launch serves every lane, and each lane's blocks read
+//    and write only that lane's rows, LUT, scratch keys and ticket counters,
+//    so a lane's result is bit-identical to a one-lane launch on it (the
+//    TPU kernel ran the lanes one after another, sequential_vmap);
 //  - grid fill: the tile's window is cut into chunks, one block each (8
 //    chunks of 512 targets at window 4,096: 16 tiles x 8 = 128 blocks for
 //    132 SMs, where one block a tile filled 16);
@@ -364,20 +370,20 @@ constexpr int MS_PASS_ROWS = MS_SLOTS * ROWS;
 constexpr int MS_GROUP = 4;
 
 __global__ void __launch_bounds__(MS_THREADS)
-match_slab_kernel(const float* __restrict__ src,       // (S, 3)
+match_slab_kernel(const float* __restrict__ src,       // (B, S, 3)
                   int S,
-                  const float* __restrict__ tgt8,      // (padded_T, 8)
+                  const float* __restrict__ tgt8,      // (B, padded_T, 8)
                   int padded_T,
-                  const long long* __restrict__ lut,   // (LUT_BINS,)
-                  const float* __restrict__ lo_p,      // ()
-                  const float* __restrict__ inv_h_p,   // ()
+                  const long long* __restrict__ lut,   // (B, LUT_BINS)
+                  const float* __restrict__ lo_p,      // (B,)
+                  const float* __restrict__ inv_h_p,   // (B,)
                   float margin, int ts, int window, int chunk,
-                  u64* __restrict__ part_g,            // (tiles, chunks, ts)
-                  unsigned* __restrict__ tickets,      // (tiles,): 0 in, 0 out
-                  float* __restrict__ qn_out,          // (S, 8)
-                  float* __restrict__ d2_out,          // (S,)
-                  int* __restrict__ idx_out,           // (S,)
-                  int* __restrict__ starts_out)        // (tiles,)
+                  u64* __restrict__ part_g,            // (B, tiles, chunks, ts)
+                  unsigned* __restrict__ tickets,      // (B, tiles): 0 in, 0 out
+                  float* __restrict__ qn_out,          // (B, S, 8)
+                  float* __restrict__ d2_out,          // (B, S)
+                  int* __restrict__ idx_out,           // (B, S)
+                  int* __restrict__ starts_out)        // (B, tiles)
 {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int tsp = (ts + 1) & ~1;                  // keeps the floats aligned
@@ -390,9 +396,23 @@ match_slab_kernel(const float* __restrict__ src,       // (S, 3)
     __shared__ bool s_last;
 
     const int crank = blockIdx.x, n_chunk = gridDim.x;
-    const int tile = blockIdx.y;
+    const int tile = blockIdx.y, n_tiles = gridDim.y;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int row0 = tile * ts;
+
+    // this block's ICP lane: every pointer below is that lane's
+    const size_t il = blockIdx.z;
+    src += il * (size_t)S * 3;
+    tgt8 += il * (size_t)padded_T * 8;
+    lut += il * (size_t)LUT_BINS;
+    lo_p += il;
+    inv_h_p += il;
+    part_g += il * (size_t)n_tiles * n_chunk * ts;
+    tickets += il * (size_t)n_tiles;
+    qn_out += il * (size_t)S * 8;
+    d2_out += il * (size_t)S;
+    idx_out += il * (size_t)S;
+    starts_out += il * (size_t)n_tiles;
 
     // 1. the tile's window start
     float mn = INFINITY;
@@ -527,15 +547,16 @@ extern "C" int lst_nn1(const void* src, const void* soa, int lanes, int S,
     return (int)cudaGetLastError();
 }
 
-extern "C" int lst_match_slab(const void* src, int S, const void* tgt8,
-                              int padded_T, const void* lut, const void* lo,
+extern "C" int lst_match_slab(const void* src, int lanes, int S,
+                              const void* tgt8, int padded_T,
+                              const void* lut, const void* lo,
                               const void* inv_h, float margin, int ts,
                               int window, int n_chunk, int chunk, void* part,
                               void* tickets, void* qn, void* d2, void* idx,
                               void* starts, void* stream) {
-    if (S <= 0) return (int)cudaSuccess;
-    if (ts <= 0 || window <= 0 || window > padded_T || n_chunk <= 0 ||
-        chunk % (MS_COLGROUPS * MS_GROUP) ||
+    if (lanes <= 0 || S <= 0) return (int)cudaSuccess;
+    if (lanes > 65535 || ts <= 0 || window <= 0 || window > padded_T ||
+        n_chunk <= 0 || chunk % (MS_COLGROUPS * MS_GROUP) ||
         (long long)n_chunk * chunk < window)
         return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)((ts + 1) & ~1) * MS_COLGROUPS * sizeof(u64) +
@@ -546,7 +567,7 @@ extern "C" int lst_match_slab(const void* src, int S, const void* tgt8,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    const dim3 grid(n_chunk, (S + ts - 1) / ts);
+    const dim3 grid(n_chunk, (S + ts - 1) / ts, lanes);
     match_slab_kernel<<<grid, MS_THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(src), S, static_cast<const float*>(tgt8),

@@ -81,6 +81,37 @@ def add_frame(db: KeyframeDB, cloud: PointCloud, frame: int,
     return db
 
 
+def add_frame_lanes(db: KeyframeDB, cloud: PointCloud, frame: int,
+                    sc_cfg: ScanContextConfig, enabled: list,
+                    normals: torch.Tensor) -> KeyframeDB:
+    """:func:`add_frame` for B lanes in lockstep, in place: ``db`` holds
+    (B, F, ...) tensors and a per-lane ``last_frame`` list, ``cloud`` and
+    ``normals`` are (B, N, ...), ``enabled`` one bool per lane. One write
+    per field for all lanes, one Scan Context scatter; lane b's rows equal
+    :func:`add_frame` on lane b's cloud."""
+    n_out = db.clouds.shape[2]
+    if n_out >= cloud.points.shape[1]:
+        pts, mask, nrm = cloud.points, cloud.mask, normals
+    else:
+        idx = strided_prefix_idx(cloud.count(), n_out)
+        idx3 = idx[..., None].expand(-1, -1, 3)
+        pts, mask = torch.gather(cloud.points, 1, idx3), torch.gather(cloud.mask, 1, idx)
+        nrm = torch.gather(normals, 1, idx3)
+    db.clouds[:, frame] = pts
+    db.cloud_mask[:, frame] = mask
+    db.normals[:, frame] = nrm
+    if any(enabled):
+        en = torch.tensor(enabled, device=db.desc.device)
+        desc = scan_context(cloud.points, cloud.mask, sc_cfg)
+        # each lane's norm as add_frame takes it (a full sum of one descriptor)
+        norm = torch.stack([torch.sqrt(torch.sum(d * d)) for d in desc])
+        db.desc[:, frame] = torch.where(en[:, None, None], desc, db.desc[:, frame])
+        db.desc_norm[:, frame] = torch.where(en, norm, db.desc_norm[:, frame])
+        db.in_db[:, frame] |= en
+        db.last_frame = [frame if e else f for e, f in zip(enabled, db.last_frame)]
+    return db
+
+
 @dataclass
 class LoopDetections:
     """Result block (mirrors LoopClosureResult, loop_closure.hpp:25-31):
@@ -110,42 +141,84 @@ def detect(
     Candidates are strictly older than the query by at least ``frame_gap``,
     so a query returns the same at any later time; a query frame that was
     never added rejects everything. ``nn1_fn`` is the exact batched 1-NN
-    (default K2, ``knn_cuda.nn1``)."""
+    (default K2, ``knn_cuda.nn1``). One lane of :func:`detect_lanes`."""
+    q = db.last_frame if query is None else int(query)
+    lanes = KeyframeDB(desc=db.desc[None], desc_norm=db.desc_norm[None],
+                       clouds=db.clouds[None], cloud_mask=db.cloud_mask[None],
+                       normals=db.normals[None], in_db=db.in_db[None],
+                       last_frame=[db.last_frame])
+    return detect_lanes(lanes, cfg, sc_cfg, nn1_fn, [q],
+                        explicit=query is not None)[0]
+
+
+def detect_lanes(
+    db: KeyframeDB,
+    cfg: LoopClosureConfig,
+    sc_cfg: ScanContextConfig,
+    nn1_fn: Optional[Callable],
+    queries: list,
+    explicit: bool = True,
+) -> list:
+    """:func:`detect` for B lanes (a batched engine's DB: (B, F, ...)
+    tensors), lane b querying frame ``queries[b]``; one
+    :class:`LoopDetections` per lane, each what :func:`detect` gives on that
+    lane alone.
+
+    Retrieval runs once per lane. Verification runs tranche by tranche for
+    all lanes together: a tranche is ONE batched ICP over B x
+    ``max_candidates`` lanes, so each of its correspondence searches is one
+    K2 launch for every lane. A lane whose tranche gate is closed (nothing
+    valid, or its quota already met) or whose fine gate is closed enters
+    that ICP inactive and takes the values :func:`detect` gives it without
+    running it. ``explicit``: a query frame that was never added rejects
+    everything."""
     if cfg.ring_key_prefilter > 0:
         raise NotImplementedError("ring_key_prefilter is not ported")
     if nn1_fn is None:
         nn1_fn = knn_cuda.nn1
-    F = db.desc.shape[0]
+    B, F = db.desc.shape[:2]
     K = cfg.max_candidates
-    device = db.desc.device
-    q = db.last_frame if query is None else int(query)
-    q_safe = max(q, 0)
-
-    dist, best_shift = sc_distances(db.desc[q_safe], db.desc, db.desc_norm)
-    frames = torch.arange(F, device=device)
-    cand_ok = (
-        db.in_db
-        & (frames < q_safe)
-        & ((q_safe - frames) >= cfg.frame_gap)
-        & (dist < cfg.sc_distance_threshold)
-    )
-    if q < 0 or (query is not None and not bool(db.in_db[q_safe])):
-        cand_ok = torch.zeros_like(cand_ok)
-
     NT = 1 + max(cfg.verify_extra_tranches, 0)
     M = NT * K
-    masked = torch.where(cand_ok, dist, torch.full_like(dist, float("inf")))
-    order = torch.sort(masked, stable=True).indices
-    cand_idx = order[:M]
-    cand_dist = masked[cand_idx]
+    device = db.desc.device
+    frames = torch.arange(F, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    inf = float("inf")
+
+    # stage 1, one retrieval per lane
+    q_safe = [max(int(q), 0) for q in queries]
+    idx_l, dist_l, shift_l, nval_l = [], [], [], []
+    for b, q in enumerate(queries):
+        qs = q_safe[b]
+        dist, best_shift = sc_distances(db.desc[b, qs], db.desc[b],
+                                        db.desc_norm[b])
+        cand_ok = (
+            db.in_db[b]
+            & (frames < qs)
+            & ((qs - frames) >= cfg.frame_gap)
+            & (dist < cfg.sc_distance_threshold)
+        )
+        if q < 0 or (explicit and not bool(db.in_db[b, qs])):
+            cand_ok = torch.zeros_like(cand_ok)
+        masked = torch.where(cand_ok, dist, torch.full_like(dist, inf))
+        order = torch.sort(masked, stable=True).indices
+        idx_l.append(order[:M])
+        dist_l.append(masked[order[:M]])
+        shift_l.append(best_shift[order[:M]])
+        nval_l.append(cand_ok.sum())
+    cand_idx = torch.stack(idx_l)                      # (B, M)
+    cand_dist = torch.stack(dist_l)
     cand_valid = torch.isfinite(cand_dist)
     valid_h = cand_valid.cpu().tolist()
+    n_valid = torch.stack(nval_l).cpu().tolist()
 
-    query_cloud = PointCloud(db.clouds[q_safe], db.cloud_mask[q_safe])
-    cand_clouds = db.clouds[cand_idx]      # (M, N, 3)
-    cand_masks = db.cloud_mask[cand_idx]   # (M, N)
-    cand_normals = db.normals[cand_idx]    # (M, N, 3)
-    N = db.clouds.shape[1]
+    lane = torch.arange(B, device=device)
+    qt = torch.tensor(q_safe, device=device)
+    query_pts, query_mask = db.clouds[lane, qt], db.cloud_mask[lane, qt]
+    cand_clouds = db.clouds[lane[:, None], cand_idx]      # (B, M, N, 3)
+    cand_masks = db.cloud_mask[lane[:, None], cand_idx]   # (B, M, N)
+    cand_normals = db.normals[lane[:, None], cand_idx]    # (B, M, N, 3)
+    N = db.clouds.shape[2]
 
     vc = cfg.verify_coarse_iterations
     do_coarse = vc > 0 and cfg.verify_coarse_sample < N
@@ -157,120 +230,139 @@ def detect(
         coarse_sample=cfg.verify_coarse_sample,
     )
 
-    f32 = dict(dtype=torch.float32, device=device)
     if cfg.yaw_seed:
-        yaw = shift_to_yaw(best_shift[cand_idx], sc_cfg.num_sectors)
+        yaw = shift_to_yaw(torch.stack(shift_l), sc_cfg.num_sectors)
         zeros = torch.zeros_like(yaw)
         w = torch.stack([zeros, zeros, yaw], dim=-1)
-        init_T = se3.from_rt(se3.exp_so3(w), torch.zeros((M, 3), **f32))
+        init_T = se3.from_rt(se3.exp_so3(w), torch.zeros((B, M, 3), **f32))
     else:
-        init_T = torch.eye(4, **f32).expand(M, 4, 4)
+        init_T = torch.eye(4, **f32).expand(B, M, 4, 4)
+
+    def rep(x):
+        """Per lane -> per (lane, candidate) of a tranche."""
+        return x.repeat_interleave(K, dim=0)
 
     if do_coarse:
-        q_disp = torch.where(query_cloud.mask[:, None], query_cloud.points,
-                             torch.full_like(query_cloud.points, 1.0e6))
-        csrc = PointCloud(q_disp, query_cloud.mask).subsample(
+        q_disp = torch.where(query_mask[..., None], query_pts,
+                             torch.full_like(query_pts, 1.0e6))
+        csrc = PointCloud(q_disp, query_mask).subsample(
             cfg.verify_coarse_sample
         )
         cw = csrc.mask.to(torch.float32)
-        cdenom = torch.clamp(torch.sum(cw), min=1.0)
+        cdenom = torch.clamp(torch.sum(cw, dim=-1), min=1.0)
+        c_pts, c_mask, c_w, c_denom = (rep(x) for x in
+                                       (csrc.points, csrc.mask, cw, cdenom))
 
     def coarse_phase(cl, mk, nr, T):
-        """The ICP coarse warm start on ``len(cl)`` lanes, plus each lane's
-        coarse-sample plane RMS at the resulting transform."""
-        B = cl.shape[0]
-        pts = csrc.points[None].expand(B, -1, -1)
-        cmask = csrc.mask[None].expand(B, -1)
+        """The ICP coarse warm start on the tranche's lanes, plus each
+        lane's coarse-sample plane RMS at the resulting transform."""
 
         def match(cur):
             idx, _ = nn1_fn(cur, cl, mk)
             return _gather_rows(cl, idx), _gather_rows(nr, idx)
 
         for _ in range(vc):
-            cur = se3.apply(T, pts)
+            cur = se3.apply(T, c_pts)
             matched, nrm = match(cur)
-            delta = solve_point_to_plane(cur, matched, nrm, cmask,
+            delta = solve_point_to_plane(cur, matched, nrm, c_mask,
                                          icp_cfg.solver_damping)
             T = se3.compose(delta, T)
-        cur = se3.apply(T, pts)
+        cur = se3.apply(T, c_pts)
         matched, nrm = match(cur)
-        return T, _plane_error(cur, matched, nrm, cw, cdenom)
+        return T, _plane_error(cur, matched, nrm, c_w, c_denom)
 
     def verify(cl, mk, nr, T0, skip):
         res = icp_point_to_plane(
-            query_cloud, PointCloud(cl, mk), nr, icp_cfg, T0,
-            nn1_fn=nn1_fn, inactive=skip,
+            PointCloud(rep(query_pts), rep(query_mask)), PointCloud(cl, mk),
+            nr, icp_cfg, T0, nn1_fn=nn1_fn, inactive=skip,
         )
         return res.transformation, res.converged, res.final_error
 
-    def skipped(k):
-        return (
-            torch.eye(4, **f32).expand(k, 4, 4),
-            torch.zeros((k,), dtype=torch.bool, device=device),
-            torch.full((k,), float("inf"), **f32),
-            torch.full((k,), float("inf"), **f32),
-            False,
-        )
-
     reject = cfg.verify_coarse_reject if do_coarse else 0.0
+    eye = torch.eye(4, **f32)
 
-    def tranche(sl, run_gate):
-        if not run_gate:
-            return skipped(K)
-        cl = cand_clouds[sl : sl + K]
-        mk = cand_masks[sl : sl + K]
-        nr = cand_normals[sl : sl + K]
-        T0 = init_T[sl : sl + K]
-        valid = cand_valid[sl : sl + K]
+    def tranche(sl, gate):
+        """Tranche ``[sl, sl + K)`` of every lane whose ``gate`` is open:
+        ``(tf, conv, fit, cerr)`` as (B, K, ...) and each lane's fine
+        gate."""
+        g = torch.tensor(gate, device=device)
+        if not any(gate):
+            return (eye.expand(B, K, 4, 4),
+                    torch.zeros((B, K), dtype=torch.bool, device=device),
+                    torch.full((B, K), inf, **f32),
+                    torch.full((B, K), inf, **f32), [False] * B)
+        cl, mk, nr, T0, valid = (
+            x[:, sl : sl + K].reshape(B * K, *x.shape[2:])
+            for x in (cand_clouds, cand_masks, cand_normals, init_T, cand_valid)
+        )
+        gk = rep(g)
         if not do_coarse:
-            tf, conv, fit = verify(cl, mk, nr, T0, ~valid)
-            return tf, conv, fit, torch.full((K,), float("inf"), **f32), True
-        Tc, cerr = coarse_phase(cl, mk, nr, T0)
-        if reject > 0:
-            hopeless = cerr > reject
+            tf, conv, fit = verify(cl, mk, nr, T0, ~valid | ~gk)
+            cerr = torch.full((B * K,), inf, **f32)
+            fine = list(gate)
         else:
-            hopeless = torch.zeros((K,), dtype=torch.bool, device=device)
-        inact = ~valid | hopeless
-        fine_gate = bool((~inact).any())
-        if fine_gate:
-            tf, conv, fit = verify(cl, mk, nr, Tc, inact)
-        else:
-            tf = Tc
-            conv = torch.zeros((K,), dtype=torch.bool, device=device)
-            fit = torch.full((K,), float("inf"), **f32)
-        conv = conv & ~hopeless
-        fit = torch.where(hopeless, torch.full_like(fit, float("inf")), fit)
-        return tf, conv, fit, cerr, fine_gate
+            Tc, cerr = coarse_phase(cl, mk, nr, T0)
+            if reject > 0:
+                hopeless = cerr > reject
+            else:
+                hopeless = torch.zeros((B * K,), dtype=torch.bool, device=device)
+            inact = ~valid | hopeless
+            fine_t = (~inact).reshape(B, K).any(dim=-1) & g
+            fine = fine_t.cpu().tolist()
+            if any(fine):
+                tf, conv, fit = verify(cl, mk, nr, Tc, inact | ~rep(fine_t))
+                fk = rep(fine_t)
+                tf = torch.where(fk[:, None, None], tf, Tc)
+                conv = conv & fk
+                fit = torch.where(fk, fit, torch.full_like(fit, inf))
+            else:
+                tf = Tc
+                conv = torch.zeros((B * K,), dtype=torch.bool, device=device)
+                fit = torch.full((B * K,), inf, **f32)
+            conv = conv & ~hopeless
+            fit = torch.where(hopeless, torch.full_like(fit, inf), fit)
+        # lanes whose tranche did not run keep the values of a skipped one
+        tf = torch.where(gk[:, None, None], tf, eye)
+        conv = conv & gk
+        fit = torch.where(gk, fit, torch.full_like(fit, inf))
+        cerr = torch.where(gk, cerr, torch.full_like(cerr, inf))
+        return (tf.reshape(B, K, 4, 4), conv.reshape(B, K), fit.reshape(B, K),
+                cerr.reshape(B, K), fine)
 
     thr = cfg.icp_fitness_threshold
-    tf, conv, fit, cerr, fine_any = tranche(0, any(valid_h[:K]))
-    acc0 = cand_valid[:K] & conv & (fit < thr)
-    n_acc = int(acc0.sum())
+    tf, conv, fit, cerr, fine_any = tranche(0, [any(v[:K]) for v in valid_h])
     tfs, convs, fits, cerrs = [tf], [conv], [fit], [cerr]
+    if NT > 1:
+        acc0 = cand_valid[:, :K] & conv & (fit < thr)
+        n_acc = acc0.sum(dim=-1).cpu().tolist()
     for t in range(1, NT):
         sl = t * K
-        gate = n_acc < K and any(valid_h[sl : sl + K])
+        gate = [n_acc[b] < K and any(valid_h[b][sl : sl + K]) for b in range(B)]
         tf_t, conv_t, fit_t, cerr_t, ff_t = tranche(sl, gate)
         tfs.append(tf_t)
         convs.append(conv_t)
         fits.append(fit_t)
         cerrs.append(cerr_t)
-        fine_any = fine_any or ff_t
-        acc_t = cand_valid[sl : sl + K] & conv_t & (fit_t < thr)
-        n_acc += int(acc_t.sum())
-    tf, conv, fit, cerr = (torch.cat(x) for x in (tfs, convs, fits, cerrs))
+        fine_any = [a or f for a, f in zip(fine_any, ff_t)]
+        if t + 1 < NT:
+            acc_t = cand_valid[:, sl : sl + K] & conv_t & (fit_t < thr)
+            n_acc = [a + n for a, n in zip(n_acc, acc_t.sum(dim=-1).cpu().tolist())]
+    tf, conv, fit, cerr = (torch.cat(x, dim=1) for x in (tfs, convs, fits, cerrs))
 
     accepted = cand_valid & conv & (fit < thr)
     # quota: keep the first K acceptances in ascending-distance order
-    accepted = accepted & (torch.cumsum(accepted.to(torch.int32), 0) <= K)
-    return LoopDetections(
-        accepted=accepted,
-        query_frame=q_safe,
-        match_frame=cand_idx,
-        transform=tf,
-        sc_distance=cand_dist,
-        icp_fitness=fit,
-        coarse_fitness=cerr,
-        n_valid=int(cand_ok.sum()),
-        fine_fired=fine_any,
-    )
+    accepted = accepted & (torch.cumsum(accepted.to(torch.int32), -1) <= K)
+    return [
+        LoopDetections(
+            accepted=accepted[b],
+            query_frame=q_safe[b],
+            match_frame=cand_idx[b],
+            transform=tf[b],
+            sc_distance=cand_dist[b],
+            icp_fitness=fit[b],
+            coarse_fitness=cerr[b],
+            n_valid=int(n_valid[b]),
+            fine_fired=bool(fine_any[b]),
+        )
+        for b in range(B)
+    ]

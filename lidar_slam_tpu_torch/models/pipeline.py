@@ -24,6 +24,7 @@ runs right after its frame, which gives the state the bunched ticks give
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Mapping, Optional
 
@@ -156,6 +157,64 @@ def state_from_numpy(tree: Mapping, device) -> SlamState:
         icp_converged=t(tree["icp_converged"]),
         frame_npts=t(tree["frame_npts"]),
     )
+
+
+def stack_states(states: list):
+    """B one-lane states (a :class:`SlamState` or any of its parts) -> one
+    with a leading lane dimension: tensors stacked, host scalars (sizes,
+    counters, flags) as per-lane lists. This is the state of
+    ``parallel.BatchedSlamEngine``."""
+    first = states[0]
+    kw = {}
+    for f in dataclasses.fields(first):
+        vals = [getattr(s, f.name) for s in states]
+        if dataclasses.is_dataclass(vals[0]):
+            kw[f.name] = stack_states(vals)
+        elif isinstance(vals[0], torch.Tensor):
+            kw[f.name] = torch.stack(vals)
+        else:
+            kw[f.name] = list(vals)
+    return type(first)(**kw)
+
+
+def lane_state(state, b: int):
+    """Lane ``b`` of a lane-stacked state as a one-lane state: its tensors
+    are views (in-place writes reach the stack), its host scalars copies
+    (hand them back with :func:`set_lane`)."""
+    kw = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        kw[f.name] = lane_state(v, b) if dataclasses.is_dataclass(v) else v[b]
+    return type(state)(**kw)
+
+
+def set_lane(state, b: int, lane) -> None:
+    """Write a one-lane state back into lane ``b`` of a lane-stacked one:
+    host scalars always, tensors only where the lane's field no longer is
+    the view :func:`lane_state` gave it (a field that was rebound)."""
+    for f in dataclasses.fields(state):
+        v, w = getattr(state, f.name), getattr(lane, f.name)
+        if dataclasses.is_dataclass(v):
+            set_lane(v, b, w)
+        elif isinstance(v, torch.Tensor):
+            if w.data_ptr() != v[b].data_ptr() or w.shape != v[b].shape:
+                v[b] = w
+        else:
+            v[b] = w
+
+
+def batched_state_from_numpy(tree: Mapping, device) -> SlamState:
+    """:func:`state_from_numpy` for a JAX ``BatchedSlamEngine.state``: every
+    leaf carries a leading lane axis. Each lane becomes a one-lane state and
+    the lanes are stacked (:func:`stack_states`)."""
+
+    def lane(t, b):
+        return {k: lane(v, b) for k, v in t.items()} if isinstance(t, Mapping) \
+            else np.asarray(t)[b]
+
+    B = len(np.asarray(tree["n_poses"]))
+    return stack_states([state_from_numpy(lane(tree, b), device)
+                         for b in range(B)])
 
 
 def normals_fn(config: SlamConfig) -> Callable:
@@ -309,6 +368,27 @@ def optimize_on_find(state: SlamState, config: SlamConfig) -> pg.OptimizeResult:
     return res
 
 
+def record_detection(state: SlamState, config: SlamConfig,
+                     det: lc.LoopDetections) -> int:
+    """A tick's detections into the state, in place: the accepted loop
+    factors, the counters, ``pending_optimize``; returns the number of loops
+    accepted."""
+    acc = det.accepted.cpu().tolist()
+    matches = det.match_frame.cpu().tolist()
+    for k, a in enumerate(acc):
+        if a:
+            pg.add_loop(state.pg, matches[k], det.query_frame, det.transform[k])
+    n_found = sum(acc)
+    state.loop_count += n_found
+    state.verify_fired += int(bool(torch.isfinite(det.sc_distance).any()))
+    state.verify_fine_fired += int(det.fine_fired)
+    state.verify_bound_hit += int(
+        det.n_valid > len(acc) and n_found < config.lc.max_candidates
+    )
+    state.pending_optimize = state.pending_optimize or n_found > 0
+    return n_found
+
+
 def loop_tick(state: SlamState, config: SlamConfig, frame: int) -> lc.LoopDetections:
     """Loop detection for ``frame`` and factor insertion (slam_node.cpp:
     159-167), verification on the exact K2 search; with
@@ -319,20 +399,7 @@ def loop_tick(state: SlamState, config: SlamConfig, frame: int) -> lc.LoopDetect
     at every cadence tick."""
     det = lc.detect(state.db, config.lc, config.sc, nn1_fn=knn_cuda.nn1,
                     query=frame)
-    acc = det.accepted.cpu().tolist()
-    matches = det.match_frame.cpu().tolist()
-    for k, a in enumerate(acc):
-        if a:
-            pg.add_loop(state.pg, matches[k], det.query_frame, det.transform[k])
-    n_found = sum(acc)
-    M = len(acc)
-    state.loop_count += n_found
-    state.verify_fired += int(bool(torch.isfinite(det.sc_distance).any()))
-    state.verify_fine_fired += int(det.fine_fired)
-    state.verify_bound_hit += int(
-        det.n_valid > M and n_found < config.lc.max_candidates
-    )
-    state.pending_optimize = state.pending_optimize or n_found > 0
+    n_found = record_detection(state, config, det)
     if config.optimize_midrun and n_found > 0:
         optimize_on_find(state, config)
     return det
@@ -352,6 +419,42 @@ def rebuild_occupancy(state: SlamState, config: SlamConfig) -> SlamState:
                                     se3.trans(poses)[:, :2], config.grid)
     state.occ_dropped = dropped
     return state
+
+
+def finalize_state(state: SlamState, config: SlamConfig) -> pg.OptimizeResult:
+    """Final pose-graph optimization to convergence, in float64 on the
+    device, then the occupancy rebuild (slam_node.cpp:103-108), in place."""
+    graph = pg.compact_loops(state.pg.replace(poses=state.poses))
+    res = pg.optimize(graph.to(torch.float64), config.pg)
+    n = state.n_poses
+    state.poses[:n] = res.poses[:n].to(torch.float32)
+    state.pending_optimize = False
+    rebuild_occupancy(state, config)
+    return res
+
+
+def state_metrics(state: SlamState) -> dict:
+    """Per-frame ICP records and the run's counters (host copies)."""
+    n = state.n_poses
+    return {
+        "icp_error": state.icp_error[:n].cpu().numpy().copy(),
+        "icp_iters": state.icp_iters[:n].cpu().numpy().copy(),
+        "icp_converged": state.icp_converged[:n].cpu().numpy().copy(),
+        "frame_npts": state.frame_npts[:n].cpu().numpy().copy(),
+        "loop_count": state.loop_count,
+        "verify_fired": state.verify_fired,
+        "verify_fine_fired": state.verify_fine_fired,
+        "verify_bound_hit": state.verify_bound_hit,
+        "loops_dropped": state.pg.n_loops_dropped,
+        "occ_dropped": int(state.occ_dropped),
+    }
+
+
+def loop_pairs(state: SlamState) -> list:
+    """Accepted (query, match) frame pairs, in acceptance order."""
+    g = state.pg
+    n = g.n_loops
+    return list(zip(g.loop_to[:n].cpu().tolist(), g.loop_from[:n].cpu().tolist()))
 
 
 class SlamEngine:
@@ -500,14 +603,7 @@ class SlamEngine:
     def finalize(self) -> pg.OptimizeResult:
         """Final pose-graph optimization to convergence, in float64 on the
         device, then the occupancy rebuild (slam_node.cpp:103-108)."""
-        st = self.state
-        graph = pg.compact_loops(st.pg.replace(poses=st.poses))
-        res = pg.optimize(graph.to(torch.float64), self.config.pg)
-        n = st.n_poses
-        st.poses[:n] = res.poses[:n].to(torch.float32)
-        st.pending_optimize = False
-        rebuild_occupancy(st, self.config)
-        return res
+        return finalize_state(self.state, self.config)
 
     # -- results -----------------------------------------------------------
 
@@ -520,27 +616,11 @@ class SlamEngine:
         return self.state.poses[: self.state.n_poses].cpu().numpy().copy()
 
     def metrics(self) -> dict:
-        st = self.state
-        n = st.n_poses
-        return {
-            "icp_error": st.icp_error[:n].cpu().numpy().copy(),
-            "icp_iters": st.icp_iters[:n].cpu().numpy().copy(),
-            "icp_converged": st.icp_converged[:n].cpu().numpy().copy(),
-            "frame_npts": st.frame_npts[:n].cpu().numpy().copy(),
-            "loop_count": st.loop_count,
-            "verify_fired": st.verify_fired,
-            "verify_fine_fired": st.verify_fine_fired,
-            "verify_bound_hit": st.verify_bound_hit,
-            "loops_dropped": st.pg.n_loops_dropped,
-            "occ_dropped": int(st.occ_dropped),
-        }
+        return state_metrics(self.state)
 
     def loop_pairs(self) -> list:
         """Accepted (query, match) frame pairs, in acceptance order."""
-        g = self.state.pg
-        n = g.n_loops
-        return list(zip(g.loop_to[:n].cpu().tolist(),
-                        g.loop_from[:n].cpu().tolist()))
+        return loop_pairs(self.state)
 
     def global_map(self, max_points_per_frame: Optional[int] = None) -> np.ndarray:
         """The world-frame map from the stored clouds and the current poses

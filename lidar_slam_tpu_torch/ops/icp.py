@@ -84,7 +84,8 @@ def icp_point_to_plane(
       (default: K2, ``knn_cuda.nn1``);
     - ``nn1_fn.prepare(tgt, mask)`` -> ``query(src) -> (idx, d2)``, built once;
     - ``nn1_fn.prepare_match(tgt, mask, normals)`` -> ``query(cur) ->
-      (matched, normals, d2)`` for one lane (K1's fused form).
+      (matched, normals, d2)`` for all lanes at once (K1's fused form: one
+      launch a query, each lane against its own target).
 
     ``inactive`` (bool per lane): the lane starts converged; only the final
     correspondence pass runs for it.
@@ -113,13 +114,11 @@ def icp_point_to_plane(
 
     prepare_match = getattr(nn1_fn, "prepare_match", None)
     if prepare_match is not None:
-        if B != 1:
-            raise ValueError("a fused match backend takes one lane")
-        match_q = prepare_match(tgt.points[0], tgt.mask[0], tgt_normals[0])
+        match_q = prepare_match(tgt.points, tgt.mask, tgt_normals)
 
         def match_query(cur):
-            m, n, _ = match_q(cur[0])
-            return m[None], n[None]
+            m, n, _ = match_q(cur)
+            return m, n
 
     else:
         prepare = getattr(nn1_fn, "prepare", None)

@@ -99,8 +99,8 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lst_nn1.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
     lib.lst_nn1.restype = i
-    lib.lst_match_slab.argtypes = [p, i, p, i, p, p, p, ctypes.c_float, i, i,
-                                   i, i, p, p, p, p, p, p, p]
+    lib.lst_match_slab.argtypes = [p, i, i, p, i, p, p, p, ctypes.c_float, i,
+                                   i, i, i, p, p, p, p, p, p, p]
     lib.lst_match_slab.restype = i
     _lib = lib
     return lib
@@ -153,12 +153,13 @@ def _is_cuda(t: torch.Tensor) -> bool:
 
 
 def _pad_rows(x: torch.Tensor, multiple: int, value: float) -> torch.Tensor:
-    rem = (-x.shape[0]) % multiple
+    """Pad the rows (dim -2) of (..., R, C) to a ``multiple`` of rows."""
+    rem = (-x.shape[-2]) % multiple
     if rem == 0:
         return x
-    pad = torch.full((rem,) + tuple(x.shape[1:]), value, dtype=x.dtype,
+    pad = torch.full((*x.shape[:-2], rem, x.shape[-1]), value, dtype=x.dtype,
                      device=x.device)
-    return torch.cat([x, pad], dim=0)
+    return torch.cat([x, pad], dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -250,84 +251,104 @@ nn1.prepare = _nn1_prepare
 
 @dataclass
 class SlabIndex:
-    """Per-target search state, built once per ICP call: the packed target,
-    a 4,096-bin LUT from quantized x to the first target index at or after
-    it (searchsorted over the running max of the packed x), and the bin
-    scale."""
+    """Per-target search state, built once per ICP call, for B lanes: the
+    packed targets, a 4,096-bin LUT per lane from quantized x to the first
+    target index at or after it (searchsorted over the running max of the
+    packed x), and each lane's bin scale. A one-lane index built from an
+    unbatched (T, 3) target has B = 1 and answers unbatched queries."""
 
-    tgt8: torch.Tensor  # (Tp, 8): xyz | normal xyz | 0 0, pads at SENTINEL
-    lut: torch.Tensor   # (_LUT_BINS,) int64
-    lo: torch.Tensor    # () f32
-    inv_h: torch.Tensor  # () f32
+    tgt8: torch.Tensor   # (B, Tp, 8): xyz | normal xyz | 0 0, pads at SENTINEL
+    lut: torch.Tensor    # (B, _LUT_BINS) int64
+    lo: torch.Tensor     # (B,) f32
+    inv_h: torch.Tensor  # (B,) f32
     padded_T: int
-    # the kernel's merge scratch, by (tiles, ts, chunks): per-chunk keys and
-    # the tiles' ticket counters, which the kernel leaves at 0
+    # the kernel's merge scratch, by (lanes, tiles, ts, chunks): per-chunk
+    # keys and the tiles' ticket counters, which the kernel leaves at 0
     scratch: dict = field(default_factory=dict)
 
 
 def _pack_tgt8(tgt: torch.Tensor, tgt_mask: torch.Tensor,
                tgt_normals: torch.Tensor | None, tt: int) -> torch.Tensor:
-    """(Tp, 8) packed rows [x y z | nx ny nz | 0 0] with masked rows' xyz at
-    the sentinel, padded with SENTINEL rows to a ``tt`` multiple. (The TPU
-    layout is the transpose, (8, Tp); a row per point suits a direct load.)"""
-    T = tgt.shape[0]
+    """(..., Tp, 8) packed rows [x y z | nx ny nz | 0 0] with masked rows'
+    xyz at the sentinel, padded with SENTINEL rows to a ``tt`` multiple.
+    (The TPU layout is the transpose, (8, Tp); a row per point suits a
+    direct load.)"""
     tgt_m = mask_points(tgt, tgt_mask)
-    zeros = torch.zeros((T, 2 if tgt_normals is not None else 5),
+    zeros = torch.zeros((*tgt.shape[:-1], 2 if tgt_normals is not None else 5),
                         dtype=tgt.dtype, device=tgt.device)
     parts = [tgt_m, tgt_normals, zeros] if tgt_normals is not None else [tgt_m, zeros]
-    return _pad_rows(torch.cat(parts, dim=1), tt, SENTINEL).contiguous()
+    return _pad_rows(torch.cat(parts, dim=-1), tt, SENTINEL).contiguous()
 
 
 def _build_slab_index(tgt: torch.Tensor, tgt_mask: torch.Tensor,
                       tgt_normals: torch.Tensor | None) -> SlabIndex:
-    T = tgt.shape[0]
+    """The index of (T, 3) or (B, T, 3) targets; each lane's arithmetic is
+    the one-lane arithmetic on that lane."""
+    if tgt.dim() == 2:
+        return _build_slab_index(
+            tgt[None], tgt_mask[None],
+            None if tgt_normals is None else tgt_normals[None])
+    T = tgt.shape[1]
     tgt8 = _pack_tgt8(tgt, tgt_mask, tgt_normals, _QUANT)
-    xs = tgt[:, 0]
+    xs = tgt[..., 0]
     inf = torch.full_like(xs, float("inf"))
-    lo = torch.min(torch.where(tgt_mask, xs, inf))
-    hi = torch.max(torch.where(tgt_mask, xs, -inf))
+    lo = torch.min(torch.where(tgt_mask, xs, inf), dim=-1).values
+    hi = torch.max(torch.where(tgt_mask, xs, -inf), dim=-1).values
     h = torch.clamp((hi - lo) / _LUT_BINS, min=1e-6)
-    x_mono = torch.cummax(tgt8[:T, 0], dim=0).values
-    edges = lo + h * torch.arange(_LUT_BINS, dtype=tgt.dtype, device=tgt.device)
-    lut = torch.searchsorted(x_mono, edges, side="left")
+    x_mono = torch.cummax(tgt8[:, :T, 0], dim=-1).values.contiguous()
+    edges = lo[:, None] + h[:, None] * torch.arange(
+        _LUT_BINS, dtype=tgt.dtype, device=tgt.device)
+    lut = torch.searchsorted(x_mono, edges.contiguous(), side="left")
     inv_h = torch.ones_like(h) / h
-    return SlabIndex(tgt8, lut, lo, inv_h, tgt8.shape[0])
+    return SlabIndex(tgt8, lut, lo, inv_h, tgt8.shape[1])
 
 
 def _slab_starts_lut(src_p: torch.Tensor, index: SlabIndex, ts: int,
                      window: int, margin: float) -> torch.Tensor:
     """Per-source-tile window starts (int32, multiples of _QUANT), clipped so
-    start + window stays inside the padded target."""
-    tiles_x = src_p[:, 0].reshape(-1, ts)
-    tile_min_x = torch.min(tiles_x, dim=1).values - margin
+    start + window stays inside the padded target: (tiles,) for a (Sp, 3)
+    source, (B, tiles) for (B, Sp, 3)."""
+    if src_p.dim() == 2:
+        return _slab_starts_lut(src_p[None], index, ts, window, margin)[0]
+    B = src_p.shape[0]
+    tiles_x = src_p[..., 0].reshape(B, -1, ts)
+    tile_min_x = torch.min(tiles_x, dim=-1).values - margin
     b = torch.clamp(
-        torch.floor((tile_min_x - index.lo) * index.inv_h), 0, _LUT_BINS - 1
+        torch.floor((tile_min_x - index.lo[:, None]) * index.inv_h[:, None]),
+        0, _LUT_BINS - 1,
     ).to(torch.int64)
-    starts = torch.div(index.lut[b], _QUANT, rounding_mode="floor") * _QUANT
+    starts = torch.div(torch.gather(index.lut, 1, b), _QUANT,
+                       rounding_mode="floor") * _QUANT
     return torch.clamp(starts, 0, max(index.padded_T - window, 0)).to(torch.int32)
 
 
 def _match_slab_plain(src_p, tgt8, starts, ts: int, window: int):
-    """Plain version of the K1 kernel: (qn (Sp, 8), minv (Sp,), argm (Sp,))."""
-    n_tiles = src_p.shape[0] // ts
-    cols = starts.to(torch.int64)[:, None] + torch.arange(
+    """Plain version of the K1 kernel over lanes: src_p (B, Sp, 3), tgt8
+    (B, Tp, 8), starts (B, tiles) -> (qn (B, Sp, 8), minv (B, Sp), argm
+    (B, Sp))."""
+    B, Sp = src_p.shape[:2]
+    n_tiles = Sp // ts
+    cols = starts.to(torch.int64)[..., None] + torch.arange(
         window, device=src_p.device
-    )
-    win = tgt8[cols]                                    # (tiles, W, 8)
-    d = sq_dist(src_p.reshape(n_tiles, ts, 3), win[..., :3])  # (tiles, ts, W)
+    )                                                   # (B, tiles, W)
+    win = torch.gather(tgt8, 1, cols.reshape(B, -1, 1).expand(-1, -1, 8))
+    win = win.reshape(B, n_tiles, window, 8)
+    d = sq_dist(src_p.reshape(B, n_tiles, ts, 3), win[..., :3])  # (B, tiles, ts, W)
     minv, am = torch.min(d, dim=-1)
-    g = (am + starts.to(torch.int64)[:, None]).reshape(-1)
-    return tgt8[g], minv.reshape(-1), g.to(torch.int32)
+    g = (am + starts.to(torch.int64)[..., None]).reshape(B, Sp)
+    qn = torch.gather(tgt8, 1, g[..., None].expand(-1, -1, 8))
+    return qn, minv.reshape(B, Sp), g.to(torch.int32)
 
 
 def _slab_query_plain(src, index: SlabIndex, ts: int, window: int,
                       margin: float):
-    """Plain version of one K1 query: pad, LUT starts, windowed search."""
-    S = src.shape[0]
+    """Plain version of one K1 query over lanes (src (B, S, 3)): pad, LUT
+    starts, windowed search."""
+    S = src.shape[1]
     src_p = _pad_rows(src, ts, SENTINEL)
     starts = _slab_starts_lut(src_p, index, ts, window, margin)
     qn, minv, argm = _match_slab_plain(src_p, index.tgt8, starts, ts, window)
-    return qn[:S], torch.clamp(minv[:S], min=0.0), argm[:S], starts
+    return qn[:, :S], torch.clamp(minv[:, :S], min=0.0), argm[:, :S], starts
 
 
 def _slab_plan(window: int) -> tuple[int, int]:
@@ -342,34 +363,36 @@ def _slab_plan(window: int) -> tuple[int, int]:
 
 def _slab_query_cuda(src, index: SlabIndex, ts: int, window: int,
                      margin: float):
-    """One K1 query on the card: one kernel launch and nothing else (the
-    first query of an index also allocates its merge scratch). The kernel
-    pads by masking rows past S, computes the window starts from
-    ``index.lo``, ``index.inv_h`` and ``index.lut`` on the device, clamps d2
-    and writes only the S live rows."""
-    S, dev = src.shape[0], src.device
+    """One K1 query on the card for all B lanes (src (B, S, 3)): one kernel
+    launch and nothing else (the first query of an index also allocates its
+    merge scratch). The kernel pads by masking rows past S, computes each
+    lane's window starts from that lane's ``lo``, ``inv_h`` and ``lut`` on
+    the device, clamps d2 and writes only the S live rows."""
+    B, S, dev = src.shape[0], src.shape[1], src.device
     if src.dtype != torch.float32 or index.tgt8.dtype != torch.float32:
         raise ValueError("match_slab kernel takes float32 points")
     if index.lut.dtype != torch.int64 or index.lo.dtype != torch.float32:
         raise ValueError("match_slab kernel takes an int64 LUT and f32 scale")
+    if index.tgt8.shape[0] != B:
+        raise ValueError("match_slab: one source per target lane")
     src = src.contiguous()
-    qn = torch.empty((S, 8), dtype=torch.float32, device=dev)
-    d2 = torch.empty((S,), dtype=torch.float32, device=dev)
-    argm = torch.empty((S,), dtype=torch.int32, device=dev)
+    qn = torch.empty((B, S, 8), dtype=torch.float32, device=dev)
+    d2 = torch.empty((B, S), dtype=torch.float32, device=dev)
+    argm = torch.empty((B, S), dtype=torch.int32, device=dev)
     n_tiles = -(-S // ts)
-    starts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    starts = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
     n_chunk, chunk = _slab_plan(window)
-    plan = (n_tiles, ts, n_chunk)
+    plan = (B, n_tiles, ts, n_chunk)
     if plan not in index.scratch:
         index.scratch[plan] = (
             torch.empty(plan, dtype=torch.int64, device=dev),
-            torch.zeros((n_tiles,), dtype=torch.int32, device=dev),
+            torch.zeros((B, n_tiles), dtype=torch.int32, device=dev),
         )
     part, tickets = index.scratch[plan]
     _check_cuda(src, index.lut, index.lo, index.inv_h, part, tickets, d2,
                 argm, starts, aligned=(index.tgt8, qn))
     MATCH_SLAB.launch(
-        src.data_ptr(), S, index.tgt8.data_ptr(), index.padded_T,
+        src.data_ptr(), B, S, index.tgt8.data_ptr(), index.padded_T,
         index.lut.data_ptr(), index.lo.data_ptr(), index.inv_h.data_ptr(),
         margin, ts, window, n_chunk, chunk, part.data_ptr(),
         tickets.data_ptr(), qn.data_ptr(), d2.data_ptr(), argm.data_ptr(),
@@ -380,10 +403,14 @@ def _slab_query_cuda(src, index: SlabIndex, ts: int, window: int,
 
 def _slab_query(src, index: SlabIndex, ts: int, window: int, margin: float,
                 call=None):
-    """``(qn (S, 8), d2 (S,), idx (S,) int32, starts (tiles,) int32)``;
-    ``call`` defaults to the kernel for CUDA tensors and the plain version
-    for CPU tensors."""
-    ts = min(ts, max(8, src.shape[0]))
+    """``(qn (..., S, 8), d2 (..., S), idx (..., S) int32, starts (...,
+    tiles) int32)`` for a (S, 3) source against a one-lane index or a
+    (B, S, 3) source against a B-lane index; ``call`` defaults to the kernel
+    for CUDA tensors and the plain version for CPU tensors."""
+    if src.dim() == 2:
+        return tuple(x[0] for x in _slab_query(src[None], index, ts, window,
+                                               margin, call))
+    ts = min(ts, max(8, src.shape[1]))
     window = min(window, index.padded_T)
     if call is None:
         call = _slab_query_cuda if _is_cuda(src) else _slab_query_plain
@@ -393,19 +420,20 @@ def _slab_query(src, index: SlabIndex, ts: int, window: int, margin: float,
 def _nn1_slab(src, tgt, tgt_mask, ts, window, margin, call):
     index = _build_slab_index(tgt, tgt_mask, None)
     _, d2, argm, _ = _slab_query(src, index, ts, window, margin, call)
-    return torch.clamp(argm, max=tgt.shape[0] - 1), d2
+    return torch.clamp(argm, max=tgt.shape[-2] - 1), d2
 
 
 def _match_slab(src, tgt, tgt_mask, tgt_normals, ts, window, margin, call):
     index = _build_slab_index(tgt, tgt_mask, tgt_normals)
     qn, d2, _, _ = _slab_query(src, index, ts, window, margin, call)
-    return qn[:, 0:3], qn[:, 3:6], d2
+    return qn[..., 0:3], qn[..., 3:6], d2
 
 
 def nn1_slab(src, tgt, tgt_mask, ts: int = 256, window: int = 4096,
              margin: float = 3.0):
-    """Slab-windowed 1-NN (K1; contract of ``nn1_slab_pallas``):
-    ``(idx (S,) int32 clamped to T-1, dist2 (S,))``."""
+    """Slab-windowed 1-NN (K1; contract of ``nn1_slab_pallas``), one lane
+    ((S, 3) against (T, 3)) or B lanes in one launch ((B, S, 3) against
+    (B, T, 3)): ``(idx (..., S) int32 clamped to T-1, dist2 (..., S))``."""
     return _nn1_slab(src, tgt, tgt_mask, ts, window, margin, None)
 
 
@@ -417,8 +445,9 @@ def nn1_slab_torch(src, tgt, tgt_mask, ts: int = 256, window: int = 4096,
 
 def match_slab(src, tgt, tgt_mask, tgt_normals, ts: int = 256,
                window: int = 4096, margin: float = 3.0):
-    """Fused slab 1-NN + gather (K1; contract of ``match_slab_pallas``):
-    ``(matched (S, 3), normals (S, 3), dist2 (S,))``."""
+    """Fused slab 1-NN + gather (K1; contract of ``match_slab_pallas``), one
+    lane or B lanes in one launch (the JAX kernel under ``vmap``):
+    ``(matched (..., S, 3), normals (..., S, 3), dist2 (..., S))``."""
     return _match_slab(src, tgt, tgt_mask, tgt_normals, ts, window, margin,
                        None)
 
@@ -444,11 +473,13 @@ class SlabBackend:
         return nn1_slab(s, t, m, self.ts, self.window, self.margin)
 
     def prepare_match(self, tgt_pts, tgt_mask, tgt_normals):
+        """Targets (T, 3) or (B, T, 3) -> ``q(cur)`` with the same leading
+        dims: every query is one launch for all lanes."""
         index = _build_slab_index(tgt_pts, tgt_mask, tgt_normals)
 
         def q(cur):
             qn, d2, _, _ = _slab_query(cur, index, self.ts, self.window,
                                        self.margin)
-            return qn[:, 0:3], qn[:, 3:6], d2
+            return qn[..., 0:3], qn[..., 3:6], d2
 
         return q

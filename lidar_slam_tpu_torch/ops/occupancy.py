@@ -40,10 +40,13 @@ def update_occupancy(
 
     ``world_pts`` (N, 3) or (B, N, 3), ``mask`` (N,) or (B, N), ``sensor_xy``
     (2,) or (B, 2): a batch of scans is marked in one scatter, each with its
-    own clipped patch. Returns the number of dropped in-range points (int64
-    tensor, summed over the batch)."""
+    own clipped patch. Into a (D, D) grid the batch is frames of one map and
+    the number of dropped in-range points is summed over it (int64 tensor,
+    ()); into a (B, D, D) grid scan b marks lane b's map and the counts are
+    per lane, (B,). The scatter is a set to 1 (a max), never an add."""
     if world_pts.dim() == 2:
         world_pts, mask, sensor_xy = world_pts[None], mask[None], sensor_xy[None]
+    lanes = grid.dim() == 3
     D = config.grid_dim
     P = config.patch_dim
     res = torch.tensor(config.resolution, dtype=world_pts.dtype,
@@ -66,10 +69,14 @@ def update_occupancy(
     lx = cx - px0
     ly = cy - py0
     in_patch = (lx >= 0) & (lx < P) & (ly >= 0) & (ly < P)
-    n_dropped = torch.sum(keep & ~in_patch)
+    dropped = keep & ~in_patch
     keep = keep & in_patch
+    if lanes:
+        lane = torch.arange(keep.shape[0], device=keep.device)[:, None]
+        grid[lane.expand_as(keep)[keep], cx[keep], cy[keep]] = 1
+        return torch.sum(dropped, dim=-1)
     grid[cx[keep], cy[keep]] = 1
-    return n_dropped
+    return torch.sum(dropped)
 
 
 def grid_to_message(grid, config: OccupancyGridConfig) -> dict:

@@ -21,10 +21,11 @@ _NEG = -1.0e9
 
 def scan_context(pts: torch.Tensor, mask: torch.Tensor,
                  config: ScanContextConfig = ScanContextConfig()) -> torch.Tensor:
-    """(rings, sectors) max-height descriptor of a padded (N, 3) cloud."""
+    """(rings, sectors) max-height descriptor of a padded (N, 3) cloud, or
+    (B, rings, sectors) of B clouds (B, N, 3) in one scatter."""
     R, S = config.num_rings, config.num_sectors
     f = dict(dtype=pts.dtype, device=pts.device)
-    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
     rng = torch.sqrt(x * x + y * y)
     ang = torch.atan2(y, x) + math.pi
     valid = mask & (rng <= config.max_range) & (rng >= config.min_range)
@@ -36,11 +37,18 @@ def scan_context(pts: torch.Tensor, mask: torch.Tensor,
     C = R * S
     bin_id = torch.where(valid, ring * S + sector, torch.full_like(ring, C))
     zval = torch.where(valid, z, torch.full_like(z, _NEG))
-    desc = torch.full((C + 1,), _NEG, **f)  # slot C collects invalid points
-    desc = desc.scatter_reduce(0, bin_id, zval, reduce="amax", include_self=True)
-    desc = desc[:C]
+    lead = pts.shape[:-2]
+    n_clouds = math.prod(lead)
+    # cloud k's bins are [k (C + 1), (k + 1) (C + 1)); slot C of each
+    # collects its invalid points
+    bin_id = bin_id.reshape(n_clouds, -1) + (C + 1) * torch.arange(
+        n_clouds, device=pts.device)[:, None]
+    desc = torch.full((n_clouds * (C + 1),), _NEG, **f)
+    desc = desc.scatter_reduce(0, bin_id.reshape(-1), zval.reshape(-1),
+                               reduce="amax", include_self=True)
+    desc = desc.reshape(n_clouds, C + 1)[:, :C]
     desc = torch.where(desc < -1000.0, torch.zeros_like(desc), desc)
-    return desc.reshape(R, S)
+    return desc.reshape(*lead, R, S)
 
 
 def _rolled_queries(desc: torch.Tensor) -> torch.Tensor:

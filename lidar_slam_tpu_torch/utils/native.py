@@ -11,14 +11,23 @@
   the next ``window`` frames while the device works on the current one.
 - ``normals_radius_host`` computes radius normals for one cloud.
 
-The library is built with ``make -C native`` on first use. There is no NumPy
-fallback: if the build or the load fails, or a frame cannot be read, this
-raises.
+The library is built on first use from ``native/ply_io.cpp`` with the flags
+of ``native/Makefile``, into ``build/native/`` under a name keyed on a hash
+of the source and the flags. Several processes may start at once (test
+workers, a fresh checkout): the build runs under an exclusive file lock and
+links to a temporary name that ``os.replace`` moves into place, so no
+process ever loads a library another one is still writing. The in-tree
+``native/liblidar_native.so`` that ``make`` links in place is never loaded
+here. There is no NumPy fallback: if the build or the load fails, or a frame
+cannot be read, this raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
+import os
 import subprocess
 from pathlib import Path
 from typing import List
@@ -26,24 +35,54 @@ from typing import List
 import numpy as np
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-LIB_PATH = NATIVE_DIR / "liblidar_native.so"
+SOURCE = NATIVE_DIR / "ply_io.cpp"
+BUILD_DIR = NATIVE_DIR.parent / "build" / "native"
+# the compile line of native/Makefile: $(CXX) $(CXXFLAGS) -shared -o $@ $< -lpthread
+CXX = "g++"
+CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra")
 
 _lib = None
 _FP = ctypes.POINTER(ctypes.c_float)
 
 
+def library_path(build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library for the current source and flags lives."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join((CXX, *CXXFLAGS)).encode())
+    return Path(build_dir) / f"liblidar_native_{h.hexdigest()[:16]}.so"
+
+
+def build_library(build_dir: Path = BUILD_DIR) -> Path:
+    """Build the library into ``build_dir`` unless it is there; returns its
+    path. Safe to call from many processes at once: one builds under the
+    lock, the others wait for it and find the finished file."""
+    so = library_path(build_dir)
+    if so.exists():
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    with open(so.parent / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [CXX, *CXXFLAGS, "-shared", "-o", str(tmp), str(SOURCE),
+                 "-lpthread"],
+                capture_output=True, text=True, timeout=600,
+            )
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError("building the native library failed:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, so)
+    return so
+
+
 def get_lib() -> ctypes.CDLL:
-    """Build (``make`` is a no-op when the library is fresh) and load."""
+    """Build (once per source hash, see :func:`build_library`) and load."""
     global _lib
     if _lib is not None:
         return _lib
-    proc = subprocess.run(["make", "-C", str(NATIVE_DIR)], capture_output=True,
-                          text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"building the native library failed:\n{proc.stdout}{proc.stderr}"
-        )
-    lib = ctypes.CDLL(str(LIB_PATH))
+    lib = ctypes.CDLL(str(build_library()))
     fp, c_long, c_int, c_float = _FP, ctypes.c_long, ctypes.c_int, ctypes.c_float
     lib.lidar_voxel_downsample.restype = c_long
     lib.lidar_voxel_downsample.argtypes = [fp, c_long, c_float, fp, c_long]

@@ -19,6 +19,8 @@ from lidar_slam_tpu_torch import cli
 from lidar_slam_tpu_torch.utils import io
 from lidar_slam_tpu_torch.utils.dataset import load_gt_poses
 
+from jax_native import jax_native  # noqa: F401  (autouse fixture)
+
 torch.set_num_threads(2)
 
 N_FRAMES = 40

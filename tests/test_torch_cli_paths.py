@@ -20,6 +20,8 @@ from lidar_slam_tpu import cli as jcli
 from lidar_slam_tpu_torch import cli
 from lidar_slam_tpu_torch.utils import io
 
+from jax_native import jax_native  # noqa: F401  (autouse fixture)
+
 torch.set_num_threads(2)
 
 SHORT = 8  # frames of every run here
@@ -132,5 +134,6 @@ def test_convert_and_missing_frames(tmp_path, data, capsys):
     assert cli.main(["run", "--data-dir", str(tmp_path / "plys" / ".."),
                      "--cpu", "--out-dir", str(tmp_path / "o")]) == 1
     assert "No frames found" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        cli.main(["run-batch", "--data-dirs", data])
+    assert cli.main(["run-batch", "--data-dirs", f"{data},{tmp_path}", "--cpu",
+                     "--out-dir", str(tmp_path / "o")]) == 1
+    assert "empty sequence directory" in capsys.readouterr().err

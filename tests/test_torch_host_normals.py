@@ -22,6 +22,8 @@ from lidar_slam_tpu_torch.utils.dataset import (
     route_half_for,
 )
 
+from jax_native import jax_native  # noqa: F401  (autouse fixture)
+
 torch.set_num_threads(2)
 
 N_FRAMES = 40

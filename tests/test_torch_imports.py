@@ -28,9 +28,9 @@ def test_port_never_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 22, names\n"
+        "assert len(names) >= 24, names\n"
         "for n in ('cli', '__main__', 'utils.io', 'utils.export', 'utils.checkpoint',"
-        " 'utils.native', 'ops.voxel'):\n"
+        " 'utils.native', 'ops.voxel', 'parallel', 'parallel.batched'):\n"
         "    assert p.__name__ + '.' + n in sys.modules, n\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('lidar_slam_tpu.') or m == 'lidar_slam_tpu']\n"
@@ -142,6 +142,44 @@ def test_engine_default_device_is_the_card():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             SlamEngine(cfg)
     assert SlamEngine(cfg, "cpu").state.poses.device.type == "cpu"
+
+
+def test_run_batch_refuses_to_run_without_cuda_unless_cpu_is_asked(tmp_path):
+    """``run-batch`` without ``--cpu`` on a machine without CUDA exits 2
+    with a message, before it reads any data."""
+    import torch
+
+    if torch.cuda.is_available():
+        return
+    r = subprocess.run(
+        [sys.executable, "-m", "lidar_slam_tpu_torch", "run-batch",
+         "--data-dirs", f"{tmp_path},{tmp_path}", "--out-dir",
+         str(tmp_path / "out")],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 2
+    assert "CUDA is not available" in r.stderr and "--cpu" in r.stderr
+    assert not (tmp_path / "out").exists()
+
+
+def test_batched_engine_default_device_is_the_card():
+    """``BatchedSlamEngine(cfg, batch)`` (the JAX signature) targets CUDA:
+    without a card it raises; sharding over cards is not ported."""
+    import torch
+
+    from lidar_slam_tpu_torch.config import tiny_config
+    from lidar_slam_tpu_torch.parallel import BatchedSlamEngine
+
+    cfg = tiny_config(max_frames=8)
+    if torch.cuda.is_available():
+        assert BatchedSlamEngine(cfg, 2).state.poses.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            BatchedSlamEngine(cfg, 2)
+    eng = BatchedSlamEngine(cfg, 2, "cpu")
+    assert eng.state.poses.shape[:2] == (2, 8)
+    assert eng.state.poses.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="item 17"):
+        BatchedSlamEngine(cfg, 2, "cpu", mesh=object())
 
 
 def test_unported_options_fail_by_name():

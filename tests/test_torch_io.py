@@ -20,6 +20,8 @@ from lidar_slam_tpu_torch.config import OccupancyGridConfig
 from lidar_slam_tpu_torch.ops import occupancy
 from lidar_slam_tpu_torch.utils import dataset, export, io, metrics, native
 
+from jax_native import jax_native  # noqa: F401  (autouse fixture)
+
 
 def _write_ascii_ply(path, pts, crlf=False):
     nl = "\r\n" if crlf else "\n"

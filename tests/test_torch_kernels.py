@@ -260,3 +260,78 @@ def test_engine_on_gpu_matches_cpu(cuda):
     assert p_g == p_c and len(p_c) >= 1
     assert np.abs(t_g[:, :3, 3] - t_c[:, :3, 3]).max() < 1e-3
     assert np.mean(m_g["icp_iters"] == m_c["icp_iters"]) >= 0.9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,n_tgt,n_src,ts,window", [
+    (3, 2000, 1500, 128, 1024), (4, 32768, 4096, 256, 4096),
+    (2, 20000, 3001, 256, 2048)])
+def test_match_slab_kernel_over_lanes(cuda, lanes, n_tgt, n_src, ts, window):
+    """K1 over lanes: one launch serves every lane, and each lane equals the
+    plain version and a one-lane launch on that lane's target, bit for bit
+    (matched rows, d2, indices, window starts)."""
+    g = _gen(lanes)
+    cases = [_slab_case(g, n_tgt, n_src, 30.0 + 10.0 * b, masked=b % 2 == 1)
+             for b in range(lanes)]
+    src, tgt, mask, normals = (_dev(np.stack(x), cuda) for x in zip(*cases))
+    index = knn_cuda._build_slab_index(tgt, mask, normals)
+    before = knn_cuda.MATCH_SLAB.launches
+    out_k = knn_cuda._slab_query(src, index, ts, window, 3.0)
+    assert knn_cuda.MATCH_SLAB.launches == before + 1
+    out_p = knn_cuda._slab_query(src, index, ts, window, 3.0,
+                                 knn_cuda._slab_query_plain)
+    for a, b in zip(out_k, out_p):
+        assert a.shape == b.shape
+        _exact(a, b)
+    for b in range(lanes):
+        one = knn_cuda._build_slab_index(tgt[b], mask[b], normals[b])
+        for a, c in zip(out_k, knn_cuda._slab_query(src[b], one, ts, window,
+                                                    3.0)):
+            _exact(a[b], c)
+
+
+@pytest.mark.gpu
+def test_batched_engine_on_gpu_matches_cpu(cuda):
+    """The batched engine at tiny shapes, 2 lanes of different worlds: on
+    the card (K1 over lanes, K2 over tranches) against the same engine on
+    the CPU. Same loops; poses within 1e-3 m (the rest of the arithmetic
+    differs only in reduction order)."""
+    from lidar_slam_tpu_torch.config import fast_mode, tiny_config
+    from lidar_slam_tpu_torch.parallel import BatchedSlamEngine
+    from lidar_slam_tpu_torch.utils.dataset import (
+        generate_trajectory,
+        generate_world,
+        render_scan,
+        route_half_for,
+    )
+    from lidar_slam_tpu_torch.utils.native import voxel_downsample_host
+
+    n = 40
+    half = route_half_for(n)
+    gt = generate_trajectory(n, half=half)
+    seqs = []
+    for seed in (0, 1):
+        world = generate_world(seed, route_half=half)
+        g = np.random.default_rng(seed)
+        seqs.append([voxel_downsample_host(
+            render_scan(world, gt[i], g, max_range=15.0, max_points=20000),
+            0.5, 2048) for i in range(n)])
+    cfg = fast_mode(tiny_config(
+        max_raw_points=2048, max_points=2048, lc_cloud_points=0, max_frames=48,
+        max_loop_factors=16,
+    )).replace(host_voxelize=True, slab_window=1024, normal_window=1024)
+    runs = {}
+    for dev in ("cpu", cuda):
+        for k in knn_cuda.KERNELS:
+            k.launches = 0
+        eng = BatchedSlamEngine(cfg, 2, dev, optimize_midrun=False)
+        eng.preload(seqs)
+        eng.run_preloaded()
+        eng.finalize()
+        runs[str(dev)] = (eng.trajectories(), eng.loop_pairs(),
+                          {k.name: k.launches for k in knn_cuda.KERNELS})
+    (t_c, p_c, l_c), (t_g, p_g, l_g) = runs["cpu"], runs[str(cuda)]
+    assert l_c == {"match_slab": 0, "nn1": 0}
+    assert l_g["match_slab"] > 0 and l_g["nn1"] > 0
+    assert p_g == p_c and all(len(p) >= 1 for p in p_c)
+    assert np.abs(t_g[..., :3, 3] - t_c[..., :3, 3]).max() < 1e-3

@@ -21,10 +21,11 @@ Phases, one line each (plus details):
    events), the plain and whole-call times CUDA-event loops; each kernel's
    bound is computed from the card's SM count and clock;
    K2 also at the exact modes' shapes, 1 and 3 lanes x 32,768 x 32,768
-   (fidelity odometry, full-density verification); and at the batched
-   engine's: K1 over 4 ICP lanes in one launch (each lane exact against
-   the plain version and bit-identical to a one-lane launch on it), K2 over
-   12 lanes (a verification tranche of 4 lanes);
+   (fidelity odometry, full-density verification); at the coarse
+   verification's 3 x 512; and at the batched engine's: K1 over 4 ICP
+   lanes in one launch (each lane exact against the plain version and
+   bit-identical to a one-lane launch on it), K2 over 12 lanes of 4,096 and
+   of 512 sources (a verification tranche of 4 lanes);
 4. the engine: the full-size fast-mode config (32,768-point clouds, a
    4,608-frame keyframe DB, 8192^2 grid) on a 500-frame corridor route whose
    last eighth revisits the start, through ``SlamEngine.preload ->
@@ -47,10 +48,36 @@ Phases, one line each (plus details):
    single engine run on that lane's prepared scans, which are run after it
    for comparison; the batched run must launch K1 fewer times than the
    single runs together. Each run prints its scans/s, prep / upload /
-   device times, peak device memory and launches.
+   device times, peak device memory and launches;
+6. the ring-pattern raycast world (``make_rings_dataset``: 64 beams x
+   1,024 azimuths, 65,536 rays, two 160-frame routes with a revisit, seeds
+   0 and 1, written as ``.bin`` by two spawned processes that start after the
+   build and render while the card works): K2 first at these phases'
+   shapes (3 and 6 lanes x 4,096 and 512 sources x 16,384 targets), exact
+   and timed as in phase 3; **cli-rings-knn**: ``run
+   --mode fast --resident --normal-method knn --knn-backend grid`` on route
+   0 (device k-NN normals, grid odometry, K2 verification; K1 must not
+   run); **rings-engine**: the same prepared scans through ``SlamEngine``
+   with ``knn_backend="slab"``, ``normal_stride=2`` and
+   ``lc.ring_key_prefilter=64`` (the prefilter must run); **rings-batch**:
+   routes 0 and 1 as two lanes of ``BatchedSlamEngine`` in cli-rings-knn's
+   configuration, then each lane alone: loops and firing ticks equal, poses
+   within 1e-3 m. Every run must close a loop with finite poses and prints
+   its ATE before and after finalize;
+7. the modules of phase 6 on the card, on three ring clouds and a corridor
+   cloud padded to 32,768 rows: the exact k-NN against the same function on
+   the CPU (neighbour sets equal except at a tie at rank k: distances
+   closer than the matrix form's rounding), the k-NN PCA
+   normals against the host's float64 KD-tree normals (median angle below
+   0.01 degrees), the slab and grid searches against K2 at 4,096 x 32,768
+   (equal on every row whose K2 neighbour lies inside their search), the
+   ring-key prefilter's survivors against the CPU's on a 4,608-frame DB;
+   then each module's ms per call on the card.
 
-The last lines are a JSON line of per-kernel results, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``. Any failed check raises,
+Every phase counts each kernel's launches by launch shape (lanes x sources
+x targets, and K1's window); every launch must fall in a kernel row
+measured at its own shape. The last lines are a JSON line of per-kernel
+results, the card's name and power limit, and ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without printing the result lines. There is
 no CPU fallback: without CUDA it exits with code 2.
 """
@@ -86,6 +113,17 @@ FID_SPARSE = 77
 # 180 and 190 can close a loop)
 BATCH_LANES = 4
 BATCH_FRAMES = 200
+# [rings]: the ring-pattern raycast world at full width (64 beams x 1,024
+# azimuths, 65,536 rays), two routes of 160 frames whose last eighth
+# re-drives the start (seeds 0 and 1: [rings-batch]'s two lanes)
+RING_FRAMES = 160
+RING_BEAMS, RING_AZIMUTHS = 64, 1024
+RING_SEEDS = (0, 1)
+RING_PREFILTER = 64
+# the rows a ring scan is padded to: ~8,900 points at 0.5 m, the command
+# line's power-of-two pad (the loop verification's K2 targets)
+RING_PAD = 16384
+PREFILTER_DB = 4608  # the slice config's keyframe-DB capacity
 ARTIFACTS = ("trajectory.txt", "trajectory_tum.txt", "map.ply",
              "occupancy.npz", "occupancy.pgm", "metrics.jsonl")
 
@@ -210,6 +248,55 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k2_row(s, t, m, phase, rates, what, reps=10, plain_reps=3):
+    """K2 at one launch shape, (L, S, 3) sources against (L, T, 3) targets:
+    exact against its plain version (indices and distances equal), its
+    device time, the plain time and its bound; the JSON row, named
+    ``nn1@LxSxT`` after the launch it stands for and counted in ``phase``.
+    The bound counts the distances this input needs: every source row
+    against every valid target row."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops import knn_cuda
+
+    got, want = knn_cuda.nn1(s, t, m), knn_cuda.nn1_torch(s, t, m)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        check(x.shape == y.shape and torch.equal(x, y),
+              f"K2 ({what}) differs from the plain version")
+    err = float((got[1] - want[1]).abs().max())
+    query = knn_cuda.nn1.prepare(t, m)
+    ms = time_graph_ms(lambda: query(s), reps=reps)
+    pms = time_ms(lambda: knn_cuda.nn1_torch(s, t, m), reps=plain_reps)
+    L, S, T = s.shape[0], s.shape[1], t.shape[1]
+    valid = int(m.sum())
+    b, by = bound_ms(S * valid, _nbytes(s, t, m, *got), rates)
+    splits, tiles_per = knn_cuda._nn1_plan(L, S, -(-T // 512) * 512,
+                                           rates["sms"])
+    shape = f"{L}x{S}x{T}"
+    log(f"[kernels] K2 nn1 {shape} ({what}; {valid} valid targets): exact "
+        f"(idx, d2); plan {splits} splits x {tiles_per} tiles; kernel "
+        f"{ms:.4f} ms, bound {b:.4f} ms ({by}), plain {pms:.4f} ms")
+    return dict(
+        name=f"nn1@{shape}", route="cuda",
+        source="lidar_slam_tpu_torch/csrc/knn.cu",
+        replaces=knn_cuda.NN1.replaces, max_abs_err=err, ms=ms,
+        plain_ms=pms, bound_ms=b, bound_by=by, library_ms=None,
+        shape=shape, phase=phase,
+    )
+
+
+def odometry_source(pts, mask, rows):
+    """A cloud as an ICP's source: invalid rows at the sentinel, strided
+    to ``rows`` rows."""
+    import torch
+
+    from lidar_slam_tpu_torch.types import PointCloud
+
+    pts = torch.where(mask[:, None], pts, torch.full_like(pts, 1.0e6))
+    return PointCloud(pts, mask).subsample(rows).points.contiguous()
+
+
 def check_kernels(scans, dev):
     """K1 and K2 against their plain versions at main-path shapes, and at
     the edges of their designs; uses the scans of ``KERNEL_FRAMES``."""
@@ -300,11 +387,11 @@ def check_kernels(scans, dev):
         f"bound {b1:.4f} ms ({by1}), plain {pms1:.4f} ms; whole call "
         f"(prepare_match's query, host included) {call1:.4f} ms")
     results.append(dict(
-        name="match_slab", route="cuda",
+        name=f"match_slab@1x4096x{N}w4096", route="cuda",
         source="lidar_slam_tpu_torch/csrc/knn.cu",
         replaces=knn_cuda.MATCH_SLAB.replaces, max_abs_err=err1,
         ms=ms1, plain_ms=pms1, bound_ms=b1, bound_by=by1, library_ms=None,
-        call_ms=call1, shape="4096 x window 4096 of 32768", phase="engine",
+        call_ms=call1, shape=f"1x4096x{N}w4096", phase="engine",
     ))
 
     # K2: 3 lanes in one launch, each 4,096 sources vs 32,768 targets ---------
@@ -355,17 +442,23 @@ def check_kernels(scans, dev):
     call2 = time_ms(lambda: knn_cuda.nn1(s3, t3, m3), reps=20)
     pms2 = time_ms(lambda: knn_cuda.nn1_torch(s3, t3, m3), reps=3)
     i_k, d_k = query(s3)
-    b2, by2 = bound_ms(3 * 4096 * N, _nbytes(s3, t3, m3, i_k, d_k), rates)
+    b2, by2 = bound_ms(4096 * int(m3.sum()), _nbytes(s3, t3, m3, i_k, d_k),
+                       rates)
     log(f"[kernels] K2 nn1 3 lanes x S=4096 x T=32768: exact (idx, d2; masked "
         f"tail; 1 lane; ragged S, T; ties at split boundaries; "
         f"prepare/query); kernel {ms2:.4f} ms, bound {b2:.4f} ms ({by2}), "
         f"plain {pms2:.4f} ms; single call with layout {call2:.4f} ms")
     results.append(dict(
-        name="nn1", route="cuda", source="lidar_slam_tpu_torch/csrc/knn.cu",
+        name=f"nn1@3x4096x{N}", route="cuda",
+        source="lidar_slam_tpu_torch/csrc/knn.cu",
         replaces=knn_cuda.NN1.replaces, max_abs_err=err2,
         ms=ms2, plain_ms=pms2, bound_ms=b2, bound_by=by2, library_ms=None,
-        call_ms=call2, shape="3x4096x32768", phase="engine",
+        call_ms=call2, shape=f"3x4096x{N}", phase="engine",
     ))
+    # the coarse pass of the same verification: 512 sources a lane
+    s3c = torch.stack([odometry_source(*cloud(frames[1]), 512)] * 3)
+    results.append(k2_row(s3c, t3, m3, "engine", rates,
+                          "coarse verification, 3 candidates"))
 
     # K2 at the exact modes' shapes: fidelity odometry is one lane of 32,768
     # sources against 32,768 targets, full-density verification three ----
@@ -378,29 +471,13 @@ def check_kernels(scans, dev):
         if n_lanes == 1:
             t_b, m_b = tgt[None], tmask[None]
         splits, tiles_per = knn_cuda._nn1_plan(n_lanes, N, N, sms)
-        blocks = n_lanes * (N // 512) * splits
         check(splits * tiles_per >= N // 512 and (splits - 1) * tiles_per < N // 512,
               f"K2 plan at {n_lanes}x{N}x{N} does not cover the target")
         check(splits <= 65535 and n_lanes <= 65535, "K2 grid out of range")
-        e, _ = k2_same(s_big, t_b, m_b,
-                       f"K2 ({n_lanes} x {N} x {N}) differs from plain")
-        q_big = knn_cuda.nn1.prepare(t_b, m_b)
-        ms_b = time_graph_ms(lambda: q_big(s_big), reps=5)
-        pms_b = time_ms(lambda: knn_cuda.nn1_torch(s_big, t_b, m_b), reps=2)
-        i_b, d_b = q_big(s_big)
-        b_b, by_b = bound_ms(n_lanes * N * N,
-                             _nbytes(s_big, t_b, m_b, i_b, d_b), rates)
-        shape = f"{n_lanes}x{N}x{N}"
-        log(f"[kernels] K2 nn1 {shape}: exact (idx, d2); plan {splits} splits "
-            f"x {tiles_per} tiles, {blocks} blocks; kernel {ms_b:.4f} ms, "
-            f"bound {b_b:.4f} ms ({by_b}), plain {pms_b:.4f} ms")
-        results.append(dict(
-            name=f"nn1@{shape}", route="cuda",
-            source="lidar_slam_tpu_torch/csrc/knn.cu",
-            replaces=knn_cuda.NN1.replaces, max_abs_err=e, ms=ms_b,
-            plain_ms=pms_b, bound_ms=b_b, bound_by=by_b, library_ms=None,
-            shape=shape, phase="cli-fidelity",
-        ))
+        results.append(k2_row(
+            s_big, t_b, m_b, "cli-fidelity", rates,
+            "fidelity odometry" if n_lanes == 1 else "full-density verification",
+            reps=5, plain_reps=2))
     results += check_lane_kernels(scans, cloud, rates, dev)
     return results
 
@@ -409,19 +486,16 @@ def check_lane_kernels(scans, cloud, rates, dev):
     """The batched engine's shapes: K1 over 4 ICP lanes in one launch (each
     lane against its own target, LUT and scale), exact against the plain
     version and bit-identical, lane by lane, to a one-lane launch; K2 over a
-    verification tranche of 4 lanes (12 ICP lanes)."""
+    verification tranche of 4 lanes (12 ICP lanes), 4,096 and 512 sources
+    a lane."""
     import torch
 
     from lidar_slam_tpu_torch.ops import knn_cuda
     from lidar_slam_tpu_torch.ops.normals import estimate_normals_adaptive
-    from lidar_slam_tpu_torch.types import PointCloud
 
     def source(i):
-        """Frame i as the odometry ICP's source: sentinel-displaced, strided
-        to 4,096 rows."""
-        pts, mask = cloud(i)
-        pts = torch.where(mask[:, None], pts, torch.full_like(pts, 1.0e6))
-        return PointCloud(pts, mask).subsample(4096).points
+        """Frame i as the odometry ICP's source."""
+        return odometry_source(*cloud(i), 4096)
 
     def exact(a, b, what):
         torch.cuda.synchronize()
@@ -464,11 +538,11 @@ def check_lane_kernels(scans, cloud, rates, dev):
         f"bit-identical to a one-lane launch; kernel {ms1:.4f} ms, bound "
         f"{b1:.4f} ms ({by1}), plain {pms1:.4f} ms")
     results = [dict(
-        name=f"match_slab@{B}x4096x32768", route="cuda",
+        name=f"match_slab@{B}x4096x{N_POINTS}w4096", route="cuda",
         source="lidar_slam_tpu_torch/csrc/knn.cu",
         replaces=knn_cuda.MATCH_SLAB.replaces, max_abs_err=err1, ms=ms1,
         plain_ms=pms1, bound_ms=b1, bound_by=by1, library_ms=None,
-        shape=f"{B} lanes x 4096 x window 4096 of 32768", phase="cli-batch",
+        shape=f"{B}x4096x{N_POINTS}w4096", phase="cli-batch",
     )]
 
     # K2: a tranche of every lane, 3 candidates each against its query
@@ -477,23 +551,13 @@ def check_lane_kernels(scans, cloud, rates, dev):
     t12 = torch.stack([c for c, _ in cands])
     m12 = torch.stack([m for _, m in cands])
     s12 = src.repeat_interleave(3, dim=0).contiguous()
-    got, want = knn_cuda.nn1(s12, t12, m12), knn_cuda.nn1_torch(s12, t12, m12)
-    exact(got, want, f"K2 ({L} lanes) differs from the plain version")
-    err2 = float((got[1] - want[1]).abs().max())
-    query = knn_cuda.nn1.prepare(t12, m12)
-    ms2 = time_graph_ms(lambda: query(s12), reps=10)
-    pms2 = time_ms(lambda: knn_cuda.nn1_torch(s12, t12, m12), reps=3)
-    b2, by2 = bound_ms(L * 4096 * N_POINTS, _nbytes(s12, t12, m12, *got), rates)
-    log(f"[kernels] K2 nn1 {L} lanes x S=4096 x T={N_POINTS} (a verification "
-        f"tranche of {B} lanes): exact (idx, d2); kernel {ms2:.4f} ms, bound "
-        f"{b2:.4f} ms ({by2}), plain {pms2:.4f} ms")
-    results.append(dict(
-        name=f"nn1@{L}x4096x{N_POINTS}", route="cuda",
-        source="lidar_slam_tpu_torch/csrc/knn.cu",
-        replaces=knn_cuda.NN1.replaces, max_abs_err=err2, ms=ms2,
-        plain_ms=pms2, bound_ms=b2, bound_by=by2, library_ms=None,
-        shape=f"{L}x4096x{N_POINTS}", phase="cli-batch",
-    ))
+    results.append(k2_row(s12, t12, m12, "cli-batch", rates,
+                          f"verification tranche of {B} lanes"))
+    # the tranche's coarse pass: 512 sources a lane
+    s12c = torch.stack([odometry_source(*cloud(i + 1), 512)
+                        for i in frames]).repeat_interleave(3, dim=0)
+    results.append(k2_row(s12c.contiguous(), t12, m12, "cli-batch", rates,
+                          f"coarse verification tranche of {B} lanes"))
     return results
 
 
@@ -548,10 +612,20 @@ def run_engine(scans, gt, dev):
                 verify_fired=m["verify_fired"], ate=ate1, spy=shapes)
 
 
+def launch_shape(name: str, args) -> str:
+    """A launch's shape from its C arguments: ``LxSxT`` for K2
+    (``lst_nn1(src, soa, lanes, S, T, ...)``, T padded to the tile) and
+    ``LxSxTwW`` for K1 (``lst_match_slab(src, lanes, S, tgt8, T, ...)``,
+    the window ``W`` at argument 10); the kernel rows' ``shape``."""
+    if name == "match_slab":
+        return f"{args[1]}x{args[2]}x{args[4]}w{args[10]}"
+    return f"{args[2]}x{args[3]}x{args[4]}"
+
+
 class KernelShapes:
-    """Launches of each kernel by ``lanes x sources``, counted while a
-    ``with`` block runs (it wraps the kernels' ``launch`` and calls the
-    originals): ``shapes["nn1"]["3x4096"]``."""
+    """Launches of each kernel by its launch shape (``launch_shape``),
+    counted while a ``with`` block runs (it wraps the kernels' ``launch``
+    and calls the originals): ``shapes["nn1"]["3x4096x32768"]``."""
 
     def __init__(self):
         self.shapes = {"match_slab": {}, "nn1": {}}
@@ -559,14 +633,11 @@ class KernelShapes:
     def __enter__(self):
         from lidar_slam_tpu_torch.ops import knn_cuda
 
-        # the lanes and sources of a launch: lst_match_slab(src, lanes, S,
-        # ...), lst_nn1(src, soa, lanes, S, ...)
-        where = {"match_slab": 1, "nn1": 2}
         self._orig = {k: k.launch for k in knn_cuda.KERNELS}
         for k in knn_cuda.KERNELS:
-            def launch(*args, k=k, orig=k.launch, at=where[k.name]):
+            def launch(*args, k=k, orig=k.launch):
                 orig(*args)
-                key = f"{args[at]}x{args[at + 1]}"
+                key = launch_shape(k.name, args)
                 counts = self.shapes[k.name]
                 counts[key] = counts.get(key, 0) + 1
             k.launch = launch
@@ -582,7 +653,7 @@ class RunSpy(KernelShapes):
     while it runs in this process: the trajectory just before and after
     ``finalize``, the engine's counters, every optimize-on-find chunk (LM
     iterations and the largest pose move), and each kernel's launches by
-    ``lanes x sources``. It patches the package's functions for the length
+    launch shape. It patches the package's functions for the length
     of a ``with`` block and calls the originals."""
 
     def __init__(self):
@@ -670,7 +741,7 @@ def run_cli(tag, argv, n_frames, dev):
         + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
         + f"; peak device memory {peak / 2**30:.3f} GiB; ATE "
         f"{summary['ate_rmse']:.4f} m; loops {summary['loop_count']}; launches "
-        f"{launches}, by lanes x sources {spy.shapes}; map.ply "
+        f"{launches}, by shape {spy.shapes}; map.ply "
         f"{len(cloud)} points")
     return dict(summary=summary, rows=rows, launches=launches, spy=spy,
                 out_dir=out_dir)
@@ -743,7 +814,8 @@ def run_cli_fidelity(work, dev):
     check(s["loop_count"] >= 1, "[cli-fidelity] no loop closed on the revisit")
     check(out["launches"]["nn1"] > 0 and out["launches"]["match_slab"] == 0,
           f"[cli-fidelity] expected K2 only: {out['launches']}")
-    check(set(spy.shapes["nn1"]) == {f"1x{N_POINTS}", f"3x{N_POINTS}"},
+    check(set(spy.shapes["nn1"]) == {f"1x{N_POINTS}x{N_POINTS}",
+                                     f"3x{N_POINTS}x{N_POINTS}"},
           f"[cli-fidelity] K2 ran at other shapes: {spy.shapes['nn1']}")
     check(len(spy.chunks) >= 1 and max(c["moved"] for c in spy.chunks) > 1e-4,
           f"[cli-fidelity] optimize-on-find did not move a pose: {spy.chunks}")
@@ -902,7 +974,7 @@ def run_cli_batch(work, dev):
         f"{peak / 2**30:.3f} GiB; loops {m['loops']}, verify_fired "
         f"{[x['verify_fired'] for x in lanes_m]}; ATE before finalize "
         f"{[round(a, 4) for a in odo_b]}, after {m['ate_rmse']}; launches "
-        f"{launches}, by lanes x sources {spy.shapes}")
+        f"{launches}, by shape {spy.shapes}")
 
     # the same prepared scans and configuration through the single engine
     one_launches = {k.name: 0 for k in knn_cuda.KERNELS}
@@ -949,12 +1021,461 @@ def run_cli_batch(work, dev):
     log(f"[cli-batch] the {B} lanes alone, one after another: "
         f"{B * N / t_dev:.3f} scans/s device-side ({t_dev:.3f} s), upload "
         f"{t_up:.3f} s, peak device memory {one_peak / 2**30:.3f} GiB; "
-        f"launches {one_launches}, by lanes x sources {one_spy.shapes}")
+        f"launches {one_launches}, by shape {one_spy.shapes}")
     check(launches["match_slab"] < one_launches["match_slab"],
           f"[cli-batch] K1 launches {launches['match_slab']} batched, "
           f"{one_launches['match_slab']} in the single runs")
     return dict(launches=launches, spy=spy,
                 singles=dict(launches=one_launches, spy=one_spy))
+
+
+# ---------------------------------------------------------------------------
+# [rings]: the ring-pattern raycast world (64 beams x 1,024 azimuths)
+# ---------------------------------------------------------------------------
+
+
+def render_rings(seed: int, data: str) -> float:
+    """The [rings] route of ``seed`` as ``.bin`` frames with ``poses_gt.txt``
+    (``make_rings_dataset``; one random sequence, so one process a seed);
+    returns the seconds it took. One BLAS thread: the process renders while
+    the host drives the card, and must leave it the cores."""
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = "1"
+    from lidar_slam_tpu_torch.utils.dataset import make_rings_dataset
+
+    t0 = time.perf_counter()
+    make_rings_dataset(data, n_frames=RING_FRAMES, seed=seed,
+                       n_beams=RING_BEAMS, n_azimuth=RING_AZIMUTHS, fmt="bin")
+    return time.perf_counter() - t0
+
+
+def start_ring_renders(work):
+    """Render the [rings] routes in spawned processes, one a seed, while the
+    kernel and engine phases run: ``(pool, futures, dirs)``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    dirs = [os.path.join(work, f"rings{s}") for s in RING_SEEDS]
+    pool = ProcessPoolExecutor(len(RING_SEEDS),
+                               mp_context=multiprocessing.get_context("spawn"))
+    futures = [pool.submit(render_rings, s, d) for s, d in zip(RING_SEEDS, dirs)]
+    return pool, futures, dirs
+
+
+def prepare_bins(data: str, cap: int) -> list:
+    """A [rings] route's scans as the command line prepares them: the
+    native loader's 0.5 m voxelizer into at most ``cap`` rows."""
+    from lidar_slam_tpu_torch.utils.io import discover_frames
+    from lidar_slam_tpu_torch.utils.native import FrameLoader
+
+    paths = [p for _, p in discover_frames(data)]
+    with FrameLoader(paths, cap=cap, voxel=VOXEL, raw_cap=RAW_POINTS) as ld:
+        return [ld.get(i) for i in range(len(paths))]
+
+
+def check_ring_kernels(ring_dirs, dev):
+    """K2 at the [rings] phases' shapes: the loop verification's 3
+    candidates a lane (one lane in [cli-rings-knn] and [rings-engine], two
+    in [rings-batch]), 4,096 sources a lane and 512 in the coarse pass,
+    against ring scans padded to ``RING_PAD`` rows: exact against the plain
+    version, timed, with their bounds. A revisit frame near a route's end
+    is the query, three frames near its start the candidates."""
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.utils.io import load_scan
+    from lidar_slam_tpu_torch.utils.native import voxel_downsample_host
+
+    rates = card_rates(dev)
+
+    def cloud(data, i):
+        v = voxel_downsample_host(
+            load_scan(os.path.join(data, f"{i:06d}.bin")), VOXEL, RING_PAD)
+        pts = np.zeros((RING_PAD, 3), np.float32)
+        pts[: len(v)] = v
+        return (torch.from_numpy(pts).to(dev),
+                torch.from_numpy(np.arange(RING_PAD) < len(v)).to(dev))
+
+    queries = [cloud(d, RING_FRAMES - 8) for d in ring_dirs]
+    cands = [[cloud(d, i) for i in (2, 4, 6)] for d in ring_dirs]
+    results = []
+    for lanes, phase in ((1, "cli-rings-knn"), (2, "rings-batch")):
+        t = torch.stack([c for b in range(lanes) for c, _ in cands[b]])
+        m = torch.stack([c for b in range(lanes) for _, c in cands[b]])
+        for rows in (4096, 512):
+            s = torch.stack([odometry_source(*queries[b], rows)
+                             for b in range(lanes) for _ in range(3)])
+            results.append(k2_row(
+                s, t, m, phase, rates,
+                f"verification of {lanes} ring lane{'s' if lanes > 1 else ''}"
+                f"{', coarse' if rows == 512 else ''}"))
+    return results
+
+
+def _ring_ate(tag, before, after, gt):
+    """ATE before and after finalize; a finalize that makes it worse by more
+    than 0.05 m is reported by name (``PERF.md`` attributes it)."""
+    from lidar_slam_tpu_torch.utils.metrics import ate_rmse
+
+    a0, a1 = ate_rmse(before, gt), ate_rmse(after, gt)
+    worse = a1 > a0 + 0.05
+    log(f"[{tag}] ATE {a0:.4f} m before finalize, {a1:.4f} m after"
+        + (" (finalize made it WORSE by more than 0.05 m)" if worse else ""))
+    return a0, a1
+
+
+def run_rings(ring_dirs, dev):
+    """[cli-rings-knn], [rings-engine] and [rings-batch] on the ring world.
+
+    - [cli-rings-knn]: ``run --mode fast --resident --normal-method knn
+      --knn-backend grid`` on route 0: device k-NN normals, grid odometry,
+      K2 verification;
+    - [rings-engine]: the same prepared scans through ``SlamEngine`` with
+      ``knn_backend="slab"``, ``normal_stride=2`` (adaptive normals) and
+      ``lc.ring_key_prefilter=64``;
+    - [rings-batch]: routes 0 and 1 as two lanes of ``BatchedSlamEngine``
+      in [cli-rings-knn]'s configuration, then each lane alone through
+      ``SlamEngine``: loops and firing ticks equal, poses within 1e-3 m.
+
+    Every run must close a loop and keep every pose finite; each prints its
+    ATE before and after finalize."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.models import loop_closure as lc
+    from lidar_slam_tpu_torch.models import pipeline
+    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.parallel import BatchedSlamEngine
+    from lidar_slam_tpu_torch.utils.dataset import load_gt_poses
+
+    gts = [load_gt_poses(os.path.join(d, "poses_gt.txt")) for d in ring_dirs]
+    out = {}
+
+    # [cli-rings-knn] ------------------------------------------------------
+    seen = {}
+    preload = pipeline.SlamEngine.preload
+
+    def spy_preload(engine, scans, *a, **kw):
+        seen.update(cfg=engine.config, scans=list(scans))
+        return preload(engine, scans, *a, **kw)
+
+    pipeline.SlamEngine.preload = spy_preload
+    try:
+        cli_run = run_cli("cli-rings-knn", [
+            "run", "--data-dir", ring_dirs[0], "--out-dir",
+            os.path.join(os.path.dirname(ring_dirs[0]), "out_rings"),
+            "--mode", "fast", "--resident", "--normal-method", "knn",
+            "--knn-backend", "grid",
+        ], RING_FRAMES, dev)
+    finally:
+        pipeline.SlamEngine.preload = preload
+    cfg, scans0 = seen["cfg"], seen["scans"]
+    spy = cli_run["spy"]
+    check((cfg.normal_method, cfg.knn_backend) == ("knn", "grid"),
+          f"[cli-rings-knn] ran {cfg.normal_method} / {cfg.knn_backend}")
+    check(cli_run["summary"]["loop_count"] >= 1,
+          "[cli-rings-knn] no loop closed on the revisit")
+    check(cli_run["launches"]["nn1"] > 0 and cli_run["launches"]["match_slab"] == 0,
+          f"[cli-rings-knn] expected K2 only: {cli_run['launches']}")
+    _ring_ate("cli-rings-knn", spy.before, spy.after, gts[0])
+    log(f"[cli-rings-knn] max_points {cfg.max_points} (prepared "
+        f"{min(map(len, scans0))}-{max(map(len, scans0))} points), "
+        f"verify_fired {spy.metrics['verify_fired']}, mean icp_iters "
+        f"{float(np.mean(spy.metrics['icp_iters'][1:])):.3f}")
+    out["cli-rings-knn"] = cli_run
+
+    def engine_run(tag, config, scans):
+        """One ``SlamEngine`` run with the counts set to 0 just before."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in knn_cuda.KERNELS:
+            k.launches = 0
+        eng = pipeline.SlamEngine(config, dev)
+        eng.preload(scans)
+        torch.cuda.synchronize()
+        with KernelShapes() as shapes:
+            t0 = time.perf_counter()
+            eng.run_preloaded()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            odo = eng.trajectory()
+            eng.finalize()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+        traj, m = eng.trajectory(), eng.metrics()
+        check(bool(np.isfinite(traj).all()), f"[{tag}] non-finite poses")
+        check(m["loop_count"] >= 1, f"[{tag}] no loop closed on the revisit")
+        log(f"[{tag}] {len(scans)} frames: run_preloaded {t1 - t0:.3f} s, "
+            f"finalize {t2 - t1:.3f} s -> {len(scans) / (t2 - t0):.3f} scans/s; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; loops "
+            f"{m['loop_count']} {eng.loop_pairs()}, verify_fired "
+            f"{m['verify_fired']}, mean icp_iters "
+            f"{float(np.mean(m['icp_iters'][1:])):.3f}; launches {launches}, "
+            f"by shape {shapes.shapes}")
+        return dict(odo=odo, traj=traj, metrics=m, launches=launches,
+                    spy=shapes, seconds=t2 - t0)
+
+    # [rings-engine] -------------------------------------------------------
+    cfg_e = cfg.replace(
+        knn_backend="slab", normal_method="adaptive", normal_stride=2,
+        lc=dataclasses.replace(cfg.lc, ring_key_prefilter=RING_PREFILTER))
+    calls = [0]
+    prefiltered = lc.sc_distances_ring_prefiltered
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return prefiltered(*a, **kw)
+
+    lc.sc_distances_ring_prefiltered = counted
+    try:
+        eng = engine_run("rings-engine", cfg_e, scans0)
+    finally:
+        lc.sc_distances_ring_prefiltered = prefiltered
+    check(calls[0] > 0, "[rings-engine] the ring-key prefilter did not run")
+    check(eng["launches"]["nn1"] > 0 and eng["launches"]["match_slab"] == 0,
+          f"[rings-engine] expected K2 only: {eng['launches']}")
+    log(f"[rings-engine] prefiltered retrievals {calls[0]} (k = "
+        f"{RING_PREFILTER})")
+    _ring_ate("rings-engine", eng["odo"], eng["traj"], gts[0])
+    out["rings-engine"] = eng
+
+    # [rings-batch] --------------------------------------------------------
+    scans1 = prepare_bins(ring_dirs[1], cfg.max_points)
+    lanes = [scans0, scans1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in knn_cuda.KERNELS:
+        k.launches = 0
+    beng = BatchedSlamEngine(cfg, len(lanes), dev,
+                             optimize_midrun=cfg.optimize_midrun)
+    beng.preload(lanes)
+    torch.cuda.synchronize()
+    with KernelShapes() as bshapes:
+        t0 = time.perf_counter()
+        beng.run_preloaded()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b_odo = beng.trajectories()
+        beng.finalize()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    b_launch = {k.name: k.launches for k in knn_cuda.KERNELS}
+    b_traj, b_m = beng.trajectories(), beng.metrics()
+    del beng
+    check(bool(np.isfinite(b_traj).all()), "[rings-batch] non-finite poses")
+    check(b_launch["nn1"] > 0, f"[rings-batch] K2 was not launched: {b_launch}")
+    log(f"[rings-batch] {len(lanes)} lanes x {RING_FRAMES} frames: "
+        f"run_preloaded {t1 - t0:.3f} s, finalize {t2 - t1:.3f} s -> "
+        f"{len(lanes) * RING_FRAMES / (t2 - t0):.3f} scans/s aggregate; peak "
+        f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} "
+        f"GiB; loops {[m['loop_count'] for m in b_m]}, verify_fired "
+        f"{[m['verify_fired'] for m in b_m]}; launches {b_launch}, by shape "
+        f"{bshapes.shapes}")
+    singles = dict(launches={k.name: 0 for k in knn_cuda.KERNELS})
+    with KernelShapes() as one_shapes:
+        for b, scans in enumerate(lanes):
+            one = engine_run(f"rings-batch lane {b} alone", cfg, scans)
+            for name, n in one["launches"].items():
+                singles["launches"][name] += n
+            diff = float(np.abs(one["traj"] - b_traj[b]).max())
+            log(f"[rings-batch] lane {b}: largest pose difference from the "
+                f"lane alone {diff:.3e} m")
+            _ring_ate(f"rings-batch lane {b}", b_odo[b], b_traj[b], gts[b])
+            check(b_m[b]["loop_count"] == one["metrics"]["loop_count"] >= 1,
+                  f"[rings-batch] lane {b}: loops {b_m[b]['loop_count']} "
+                  f"batched, {one['metrics']['loop_count']} alone")
+            check(b_m[b]["verify_fired"] == one["metrics"]["verify_fired"],
+                  f"[rings-batch] lane {b}: verify_fired differs from the "
+                  "lane alone")
+            check(diff <= 1e-3, f"[rings-batch] lane {b}: poses differ by "
+                  f"{diff} m from the lane alone")
+    singles["spy"] = one_shapes
+    out["rings-batch"] = dict(launches=b_launch, spy=bshapes)
+    out["rings-batch-singles"] = singles
+    return out
+
+
+def check_modules(ring_dirs, corridor, dev):
+    """The plain-torch modules of the [rings] phases on the card, on three
+    ring clouds (route 0, frames 0, 60 and 120; ~8,900 points each) and
+    one corridor cloud, each padded to 32,768 rows: the exact k-NN against
+    the same function on the CPU, the k-NN PCA normals against the host's
+    float64 KD-tree normals, the slab and grid searches against K2 (equal
+    wherever K2's neighbour lies inside their search), the ring-key
+    prefilter's survivors against the CPU's on a 4,608-frame DB; and each
+    module's time on the card."""
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.ops import grid_nn, knn_cuda, slab_nn
+    from lidar_slam_tpu_torch.ops import knn as knn_mod
+    from lidar_slam_tpu_torch.ops import scan_context as sc
+    from lidar_slam_tpu_torch.ops.normals import estimate_normals
+    from lidar_slam_tpu_torch.types import PointCloud
+    from lidar_slam_tpu_torch.utils.io import load_scan
+    from lidar_slam_tpu_torch.utils.native import (
+        normals_knn_host,
+        voxel_downsample_host,
+    )
+
+    N, K = N_POINTS, 20
+    frames = (0, RING_FRAMES * 3 // 8, RING_FRAMES * 3 // 4)
+
+    def ring_scan(i):
+        raw = load_scan(os.path.join(ring_dirs[0], f"{i:06d}.bin"))
+        return voxel_downsample_host(raw, VOXEL, N)
+
+    clouds = [(f"ring{i}", ring_scan(i), ring_scan(i + 1)) for i in frames]
+    clouds.append(("corridor", corridor[0], corridor[1]))
+
+    def padded(v, pad=N):
+        pts = np.zeros((pad, 3), np.float32)
+        pts[: len(v)] = v
+        return torch.from_numpy(pts), torch.from_numpy(np.arange(pad) < len(v))
+
+    res = {}
+    for name, tgt_np, src_np in clouds:
+        n = len(tgt_np)
+        pts, mask = padded(tgt_np)
+        pts_d, mask_d = pts.to(dev), mask.to(dev)
+        # k-NN: card at the pad against the CPU on the valid rows padded to
+        # a multiple of 1,024 (masked targets sit at the sentinel and never
+        # enter a top-k; the pad keeps the CPU's chunks wide)
+        m = min(-(-n // 1024) * 1024, N)
+        i_g, d_g = knn_mod.knn(pts_d, pts_d, mask_d, k=K)
+        i_c, d_c = knn_mod.knn(pts[:m], pts[:m], mask[:m], k=K + 1)
+        i_g, d_g = i_g[:n].cpu().numpy(), d_g[:n].cpu().numpy()
+        i_c, d_c = i_c[:n].numpy(), d_c[:n].numpy()
+        differ = np.any(np.sort(i_g, 1) != np.sort(i_c[:, :K], 1), axis=1)
+        # a tie at rank K: the K-th and (K+1)-th distances closer than the
+        # matrix form's rounding, 1e-5 relative + 16 f32 ulps of the row's
+        # |p|^2 (|s|^2 + |t|^2 - 2 s.t cancels to that; the card's and the
+        # CPU's matmuls round differently)
+        sq = np.sum(tgt_np.astype(np.float64) ** 2, axis=1)
+        gap = np.abs(d_c[:, K] - d_c[:, K - 1])
+        tie = gap <= 1e-5 * d_c[:, K - 1] + 16 * np.finfo(np.float32).eps * sq
+        check(not np.any(differ & ~tie),
+              f"[modules] {name}: k-NN sets differ from the CPU's in "
+              f"{int(np.sum(differ & ~tie))} rows without a tie at rank {K}")
+        # k-NN PCA normals against the host's float64 KD-tree normals
+        nrm = estimate_normals(pts_d, mask_d, k=K)[:n].cpu().numpy()
+        ang = np.degrees(np.arccos(np.clip(
+            np.abs(np.sum(nrm * normals_knn_host(tgt_np, K), axis=1)), 0, 1)))
+        check(np.median(ang) < 0.01,
+              f"[modules] {name}: k-NN normals' median angle to the host's "
+              f"{np.median(ang)} deg")
+        # slab and grid against K2 at the odometry ICP's shape
+        s_pts, s_mask = padded(src_np)
+        s_pts = torch.where(s_mask[:, None], s_pts, torch.full_like(s_pts, 1.0e6))
+        src = PointCloud(s_pts, s_mask).subsample(4096).points.to(dev)
+        i_k, d_k = knn_cuda.nn1(src, pts_d, mask_d)
+        i_s, d_s = slab_nn.nn1_slab(src, pts_d, mask_d)
+        _, starts, ts, win, _ = slab_nn.slab_windows(src, pts_d, mask_d)
+        st = starts.repeat_interleave(ts)
+        in_slab = (i_k.long() >= st) & (i_k.long() < st + win)
+        cell = 2.0 * VOXEL
+        grid = grid_nn.build_grid(pts_d, mask_d, cell)
+        i_r, d_r = grid_nn.nn1_grid(src, grid)
+        cand = grid.order.long()[grid_nn.grid_candidates(src, grid).long()]
+        in_grid = (cand == i_k.long()[:, None]).any(dim=1)
+        torch.cuda.synchronize()
+        for tag, idx, d2, inside in (("slab", i_s, d_s, in_slab),
+                                     ("grid", i_r, d_r, in_grid)):
+            same = (idx == i_k) & (d2 == d_k)
+            check(bool(same[inside].all()),
+                  f"[modules] {name}: nn1_{tag} differs from K2 in "
+                  f"{int((~same & inside).sum())} rows whose neighbour lies "
+                  "inside its search")
+            res[f"{name}/{tag}_equal_share"] = float(same.float().mean())
+            res[f"{name}/{tag}_inside_share"] = float(inside.float().mean())
+        res[f"{name}/points"] = n
+        res[f"{name}/knn_tie_rows"] = int(np.sum(differ))
+        res[f"{name}/knn_rows_within_1e-5"] = int(np.sum(
+            differ & (gap <= 1e-5 * d_c[:, K - 1])))
+        res[f"{name}/normals_median_deg"] = float(np.median(ang))
+        res[f"{name}/normals_max_deg"] = float(ang.max())
+        log(f"[modules] {name} ({n} points in {N}): k-NN sets equal to the "
+            f"CPU's except {int(np.sum(differ))} rows with a tie at rank {K} "
+            f"({res[f'{name}/knn_rows_within_1e-5']} within 1e-5 relative); "
+            f"k-NN normals vs host f64: median {np.median(ang):.2e} deg, max "
+            f"{ang.max():.2f} deg; equal to K2: slab "
+            f"{res[f'{name}/slab_equal_share']:.4f} of rows (inside its "
+            f"search {res[f'{name}/slab_inside_share']:.4f}), grid "
+            f"{res[f'{name}/grid_equal_share']:.4f} (inside "
+            f"{res[f'{name}/grid_inside_share']:.4f})")
+
+    # times on the card ------------------------------------------------------
+    ring_pts, ring_mask = (x.to(dev) for x in padded(clouds[0][1], 16384))
+    cor_pts, cor_mask = (x.to(dev) for x in padded(clouds[3][1]))
+    res["ms/knn_normals@16384"] = time_ms(
+        lambda: estimate_normals(ring_pts, ring_mask, k=K), reps=5)
+    res["ms/knn_normals@32768"] = time_ms(
+        lambda: estimate_normals(cor_pts, cor_mask, k=K), reps=5)
+    s_pts, s_mask = padded(clouds[3][2])
+    s_pts = torch.where(s_mask[:, None], s_pts, torch.full_like(s_pts, 1.0e6))
+    src = PointCloud(s_pts, s_mask).subsample(4096).points.to(dev)
+    grid = grid_nn.build_grid(cor_pts, cor_mask, 2.0 * VOXEL)
+    res["ms/nn1_slab@4096x32768"] = time_ms(
+        lambda: slab_nn.nn1_slab(src, cor_pts, cor_mask))
+    res["ms/nn1_grid@4096x32768"] = time_ms(lambda: grid_nn.nn1_grid(src, grid))
+    res["ms/build_grid@32768"] = time_ms(
+        lambda: grid_nn.build_grid(cor_pts, cor_mask, 2.0 * VOXEL))
+    query = knn_cuda.nn1.prepare(cor_pts[None], cor_mask[None])
+    res["ms/K2_call@4096x32768"] = time_ms(lambda: query(src[None]))
+
+    # the ring-key prefilter on a 4,608-frame DB: route 0's descriptors in
+    # its first rows, the rest empty (their zero ring keys tie)
+    descs = [sc.scan_context(*(x.to(dev) for x in padded(ring_scan(i))))
+             for i in range(0, RING_FRAMES, 4)]
+    db = torch.zeros((PREFILTER_DB, *descs[0].shape), device=dev)
+    db[: len(descs)] = torch.stack(descs)
+    norm = torch.sqrt(torch.sum(db * db, dim=(1, 2)))
+    q = descs[-1]
+    d_g, s_g = sc.sc_distances_ring_prefiltered(q, db, norm, RING_PREFILTER)
+    d_c, s_c = sc.sc_distances_ring_prefiltered(q.cpu(), db.cpu(), norm.cpu(),
+                                                RING_PREFILTER)
+    surv_g, surv_c = torch.isfinite(d_g).cpu(), torch.isfinite(d_c)
+    check(torch.equal(surv_g, surv_c) and torch.equal(s_g.cpu(), s_c),
+          "[modules] the prefilter's survivors on the card differ from the CPU's")
+    res["ms/prefiltered_retrieval@4608"] = time_ms(
+        lambda: sc.sc_distances_ring_prefiltered(q, db, norm, RING_PREFILTER))
+    res["ms/full_retrieval@4608"] = time_ms(lambda: sc.sc_distances(q, db, norm))
+    log(f"[modules] prefilter on a {PREFILTER_DB}-frame DB ({len(descs)} "
+        f"descriptors, k = {RING_PREFILTER}): survivors and shifts equal to "
+        "the CPU's")
+    log("[modules] ms per call on the card: " + ", ".join(
+        f"{k[3:]} {v:.4f}" for k, v in res.items() if k.startswith("ms/")))
+    print("[modules] " + json.dumps(res), flush=True)
+    return res
+
+
+def count_launches(results, runs) -> None:
+    """Give each kernel row its launches by phase at the row's launch shape
+    (``runs``: phase -> its ``launches`` and ``spy``); ``launches`` is the
+    count in the phase whose main path gives the row its shape. Every
+    launch of every phase must fall in a row measured at its own shape."""
+    rows = {r["name"] for r in results}
+    for tag, run in runs.items():
+        for name, counts in run["spy"].shapes.items():
+            check(sum(counts.values()) == run["launches"][name],
+                  f"[{tag}] {name}: launches by shape {counts} do not sum to "
+                  f"its {run['launches'][name]} launches")
+            missing = sorted(k for k in counts if f"{name}@{k}" not in rows)
+            check(not missing, f"[{tag}] launched {name} at shapes that no "
+                  f"kernel row measured: {missing}")
+    for r in results:
+        name = r["name"].partition("@")[0]
+        r["launches_by_phase"] = {
+            tag: run["spy"].shapes[name].get(r["shape"], 0)
+            for tag, run in runs.items()
+        }
+        r["launches"] = r["launches_by_phase"][r["phase"]]
+        check(r["launches"] > 0,
+              f"{r['name']} was not launched in the {r['phase']} run")
 
 
 def main() -> int:
@@ -985,43 +1506,44 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.2f} s -> {knn_cuda.library_path()}"
         + "".join(f"\n  {ln}" for ln in ptxas))
 
-    t0 = time.perf_counter()
-    scans, gt, raw = prepare_route()
-    log(f"[prep] {N_FRAMES} scans rendered and voxelized on the host in "
-        f"{time.perf_counter() - t0:.1f} s (set-up, not timed below)")
-
-    results = check_kernels(scans, dev)
-    engine = run_engine(scans, gt, dev)
-    del scans
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    ring_pool = None
     try:
+        # the [rings] routes render on the host while the card works
+        ring_pool, ring_jobs, ring_dirs = start_ring_renders(work)
+        t0 = time.perf_counter()
+        scans, gt, raw = prepare_route()
+        log(f"[prep] {N_FRAMES} scans rendered and voxelized on the host in "
+            f"{time.perf_counter() - t0:.1f} s (set-up, not timed below)")
+
+        results = check_kernels(scans, dev)
+        engine = run_engine(scans, gt, dev)
+        corridor = (scans[KERNEL_FRAMES[0]], scans[KERNEL_FRAMES[1]])
+        del scans
         fast = run_cli_fast(raw, gt, engine, work, dev)
         del raw
         fid, resumed = run_cli_fidelity(work, dev)
         batch = run_cli_batch(work, dev)
+        t0 = time.perf_counter()
+        secs = [f.result() for f in ring_jobs]
+        log(f"[prep] [rings] {len(RING_SEEDS)} x {RING_FRAMES} frames of "
+            f"{RING_BEAMS} x {RING_AZIMUTHS} rays rendered in "
+            f"{', '.join(f'{x:.1f}' for x in secs)} s (one process a seed; "
+            f"waited {time.perf_counter() - t0:.1f} s here)")
+        results += check_ring_kernels(ring_dirs, dev)
+        rings = run_rings(ring_dirs, dev)
+        check_modules(ring_dirs, corridor, dev)
     finally:
+        if ring_pool is not None:
+            ring_pool.shutdown(cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
-    # launches by phase: the whole kernel's for the unshaped entries, this
-    # shape's (lanes x sources) for the others; "launches" is the count in
-    # the phase whose main path gives the entry its shape
     runs = {"engine": engine, "cli-fast": fast, "cli-fidelity": fid,
             "cli-resume": resumed, "cli-batch": batch,
-            "cli-batch-singles": batch["singles"]}
-    for r in results:
-        name, _, shape = r["name"].partition("@")
-        if shape:
-            key = "x".join(shape.split("x")[:2])
-            r["launches_by_phase"] = {
-                tag: run["spy"].shapes[name].get(key, 0)
-                for tag, run in runs.items()
-            }
-        else:
-            r["launches_by_phase"] = {
-                tag: run["launches"][name] for tag, run in runs.items()
-            }
-        r["launches"] = r["launches_by_phase"][r["phase"]]
-        check(r["launches"] > 0,
-              f"{r['name']} was not launched in the {r['phase']} run")
+            "cli-batch-singles": batch["singles"],
+            **{tag: rings[tag] for tag in ("cli-rings-knn", "rings-engine",
+                                           "rings-batch",
+                                           "rings-batch-singles")}}
+    count_launches(results, runs)
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

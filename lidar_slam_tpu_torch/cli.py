@@ -134,7 +134,7 @@ def _make_loader(cfg, frames, start_frame: int = 0):
 def cmd_run(args) -> int:
     import numpy as np
 
-    from .models.pipeline import SlamEngine, normals_fn, resolve_nn1
+    from .models.pipeline import SlamEngine
     from .utils import export
     from .utils.io import discover_frames, load_scan
 
@@ -154,12 +154,6 @@ def cmd_run(args) -> int:
 
     os.makedirs(args.out_dir, exist_ok=True)
     cfg = _build_config(args)
-    try:  # a backend or estimator that is not ported fails here, by name
-        resolve_nn1(cfg)
-        normals_fn(cfg)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
     if args.dispatch_block is not None:
         print(DISPATCH_BLOCK_NOTICE, file=sys.stderr)
     if not args.resume and (not args.max_frames
@@ -626,8 +620,8 @@ def main(argv=None) -> int:
         "--knn-backend", choices=KNN_BACKENDS, default="",
         help="1-NN search backend: auto, pallas and xla are the exact "
         "brute-force kernel; slab_pallas is the fused slab-match kernel, "
-        "exact under the warm-start motion bound; slab and grid are not "
-        "ported and fail by name",
+        "exact under the warm-start motion bound; slab (x-slab window) and "
+        "grid (sorted cells) are pruned plain-torch searches",
     )
     r.add_argument("--preset", choices=["default", "tiny"], default="default")
     r.add_argument("--dispatch-block", type=int, default=None,
@@ -640,13 +634,12 @@ def main(argv=None) -> int:
                    "(constant-velocity model) instead of identity")
     r.add_argument("--normal-method",
                    choices=["adaptive", "radius", "knn"], default="",
-                   help="normal estimator (see SlamConfig.normal_method; knn "
-                   "is not ported and fails by name)")
+                   help="normal estimator (see SlamConfig.normal_method)")
     r.add_argument("--probe-stride", type=int, default=0,
                    help="adaptive-normals count-probe stride (>1 replicates "
                    "the smooth radius field; moment PCA stays per-point)")
     r.add_argument("--normal-stride", type=int, default=0,
-                   help=">1 is not ported and fails by name")
+                   help=">1: normals on every Nth sorted point, replicated")
     r.add_argument("--no-midrun-optimize", action="store_true",
                    help="defer ALL pose-graph optimization to finalize "
                    "(detection- and final-ATE-exact; saves a bounded LM "

@@ -5,9 +5,11 @@
   (descriptors, clouds, masks, normals, an ``in_db`` flag), written IN PLACE
   by :func:`add_frame` (JAX donates the buffers instead).
 - Stage 1: ONE matmul of the 60 rolled query descriptors against the whole
-  DB, the candidate mask, and a STABLE ascending sort that keeps the best
-  M = max_candidates * (1 + verify_extra_tranches) (ties keep the lower
-  frame index, as ``lax.top_k`` does).
+  DB (or, with ``ring_key_prefilter = k > 0``, against the k entries
+  nearest in ring key, the rest at +inf), the candidate mask, and a STABLE
+  ascending sort that keeps the best M = max_candidates * (1 +
+  verify_extra_tranches) (ties keep the lower frame index, as ``lax.top_k``
+  does).
 - Stage 2: verification in gated tranches of ``max_candidates`` lanes, each
   tranche one batched ICP whose every correspondence search is ONE K2
   launch over all its lanes: the hoisted coarse phase, the coarse-reject
@@ -24,7 +26,12 @@ import torch
 from ..config import ICPConfig, LoopClosureConfig, ScanContextConfig
 from ..ops import knn_cuda, se3
 from ..ops.icp import _gather_rows, _plane_error, icp_point_to_plane, solve_point_to_plane
-from ..ops.scan_context import sc_distances, scan_context, shift_to_yaw
+from ..ops.scan_context import (
+    sc_distances,
+    sc_distances_ring_prefiltered,
+    scan_context,
+    shift_to_yaw,
+)
 from ..types import PointCloud, strided_prefix_idx
 
 
@@ -172,8 +179,6 @@ def detect_lanes(
     that ICP inactive and takes the values :func:`detect` gives it without
     running it. ``explicit``: a query frame that was never added rejects
     everything."""
-    if cfg.ring_key_prefilter > 0:
-        raise NotImplementedError("ring_key_prefilter is not ported")
     if nn1_fn is None:
         nn1_fn = knn_cuda.nn1
     B, F = db.desc.shape[:2]
@@ -190,8 +195,14 @@ def detect_lanes(
     idx_l, dist_l, shift_l, nval_l = [], [], [], []
     for b, q in enumerate(queries):
         qs = q_safe[b]
-        dist, best_shift = sc_distances(db.desc[b, qs], db.desc[b],
-                                        db.desc_norm[b])
+        if cfg.ring_key_prefilter > 0:
+            dist, best_shift = sc_distances_ring_prefiltered(
+                db.desc[b, qs], db.desc[b], db.desc_norm[b],
+                k=min(cfg.ring_key_prefilter, F),
+            )
+        else:
+            dist, best_shift = sc_distances(db.desc[b, qs], db.desc[b],
+                                            db.desc_norm[b])
         cand_ok = (
             db.in_db[b]
             & (frames < qs)

@@ -33,9 +33,15 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import knn_cuda, se3
+from ..ops.grid_nn import make_grid_backend
 from ..ops.icp import icp_point_to_plane
-from ..ops.normals import estimate_normals_adaptive, estimate_normals_radius
+from ..ops.normals import (
+    estimate_normals,
+    estimate_normals_adaptive,
+    estimate_normals_radius,
+)
 from ..ops.occupancy import empty_grid, update_occupancy
+from ..ops.slab_nn import nn1_slab
 from ..ops.voxel import voxel_downsample
 from ..types import PointCloud, strided_prefix_idx
 from . import loop_closure as lc
@@ -219,41 +225,49 @@ def batched_state_from_numpy(tree: Mapping, device) -> SlamState:
 
 def normals_fn(config: SlamConfig) -> Callable:
     """Per-scan normal estimator (its output is cached as the next frame's
-    ICP target normals and stored in the DB)."""
-    if config.normal_stride != 1:
-        raise NotImplementedError(
-            "normal_stride > 1 is not ported (ROADMAP.md Queue 1, item 16)"
+    ICP target normals and stored in the DB): ``"adaptive"`` (count-targeted
+    radii) and ``"radius"`` (one radius), both with ``normal_stride``, or
+    ``"knn"``, the reference-shaped k-NN PCA with ``icp.normal_k``
+    neighbours."""
+    st = config.normal_stride
+    if config.normal_method == "adaptive":
+        return lambda pts, mask: estimate_normals_adaptive(
+            pts, mask, k=config.normal_k_target,
+            r_probe=(config.normal_probe_lo, config.normal_probe_hi),
+            r_min=config.effective_normal_radius, r_max=config.normal_r_max,
+            window=config.normal_window,
+            probe_stride=config.normal_probe_stride, stride=st,
         )
     if config.normal_method == "radius":
         return lambda pts, mask: estimate_normals_radius(
             pts, mask, radius=config.effective_normal_radius,
-            window=config.normal_window,
+            window=config.normal_window, stride=st,
         )
-    if config.normal_method != "adaptive":
-        raise NotImplementedError(
-            f"normal_method={config.normal_method!r} is not ported: the k-NN "
-            "PCA normals are ROADMAP.md Queue 1, item 16"
-        )
-    return lambda pts, mask: estimate_normals_adaptive(
-        pts, mask, k=config.normal_k_target,
-        r_probe=(config.normal_probe_lo, config.normal_probe_hi),
-        r_min=config.effective_normal_radius, r_max=config.normal_r_max,
-        window=config.normal_window, probe_stride=config.normal_probe_stride,
-    )
+    k = config.icp.normal_k
+    return lambda pts, mask: estimate_normals(pts, mask, k=k)
 
 
 def resolve_nn1(config: SlamConfig) -> Callable:
-    """The odometry correspondence backend: 'slab_pallas' -> K1 (fused slab
-    match); 'auto', 'pallas' and 'xla' -> K2 (the JAX package's three names
-    for the same exact brute-force search)."""
-    if config.knn_backend == "slab_pallas":
+    """The odometry correspondence backend:
+
+    - ``"slab_pallas"`` -> K1 (fused slab match);
+    - ``"auto"``, ``"pallas"`` and ``"xla"`` -> K2 (the JAX package's three
+      names for the same exact brute-force search);
+    - ``"slab"`` -> ``ops/slab_nn.nn1_slab`` (x-slab window with a 3 m
+      margin, plain torch);
+    - ``"grid"`` -> ``ops/grid_nn`` with cells of ``2 * voxel_size`` (the
+      grid is built once per ICP call, plain torch).
+
+    The two pruned searches are opt-in, as in the JAX package: a window can
+    miss the true neighbour."""
+    backend = config.knn_backend
+    if backend == "slab_pallas":
         return knn_cuda.SlabBackend(window=config.slab_window)
-    if config.knn_backend in ("auto", "pallas", "xla"):
-        return knn_cuda.nn1
-    raise NotImplementedError(
-        f"knn_backend={config.knn_backend!r} is not ported (ROADMAP.md "
-        "Queue 1, item 16)"
-    )
+    if backend == "slab":
+        return nn1_slab
+    if backend == "grid":
+        return make_grid_backend(cell=2.0 * config.voxel_size)
+    return knn_cuda.nn1
 
 
 def prep_cloud(config: SlamConfig, raw_pts: torch.Tensor,
@@ -479,7 +493,6 @@ class SlamEngine:
         self.config = config
         self.debug_nans = debug_nans
         self._nn1 = resolve_nn1(config)
-        normals_fn(config)  # an estimator that is not ported raises here
         self._resident: Optional[tuple] = None
         self.state = init_state(config, self.device)
         self._frame = 0

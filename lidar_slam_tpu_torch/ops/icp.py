@@ -27,6 +27,22 @@ from ..config import ICPConfig
 from ..types import ICPResult, PointCloud, strided_prefix_idx
 from . import knn_cuda, se3
 from .linalg import solve_psd_small
+from .normals import estimate_normals
+
+
+def _lane_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as one 2-D product per leading-dim lane: a lane's normal
+    equations then round the same however many lanes run with it (a
+    batched cuBLAS call takes another plan for another batch size, and a
+    lane of a batch parted from the lane alone by a few ulps, which
+    failing ICPs amplify)."""
+    if a.dim() == 2:
+        return a @ b
+    lead = a.shape[:-2]
+    a2 = a.reshape(-1, *a.shape[-2:])
+    b2 = b.reshape(-1, *b.shape[-2:])
+    out = torch.stack([x @ y for x, y in zip(a2, b2)])
+    return out.reshape(*lead, *out.shape[-2:])
 
 
 def solve_point_to_plane(
@@ -45,11 +61,10 @@ def solve_point_to_plane(
     b = torch.sum((tgt_matched - src) * normals, dim=-1)        # (..., N)
     w = weights.to(src.dtype)
     denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)          # (...)
-    Jw = J * w[..., None]
-    JwT = Jw.transpose(-1, -2)
+    JwT = (J * w[..., None]).transpose(-1, -2)
     eye = torch.eye(6, dtype=src.dtype, device=src.device)
-    A = torch.matmul(JwT, J) / denom[..., None, None] + damping * eye
-    rhs = torch.matmul(JwT, b[..., None])[..., 0] / denom[..., None]
+    A = _lane_mm(JwT, J) / denom[..., None, None] + damping * eye
+    rhs = _lane_mm(JwT, b[..., None])[..., 0] / denom[..., None]
     x = solve_psd_small(A, rhs)
     return se3.from_rt(se3.exp_so3(x[..., :3]), x[..., 3:])
 
@@ -214,3 +229,16 @@ def icp_point_to_plane(
     if not batched:
         res = ICPResult(T[0], converged[0], it[0], hist[0], final_err[0])
     return res
+
+
+def icp_point_to_plane_auto(
+    src: PointCloud,
+    tgt: PointCloud,
+    config: ICPConfig = ICPConfig(),
+    init_transform: Optional[torch.Tensor] = None,
+) -> ICPResult:
+    """Reference-shaped API: estimates the target's k-NN PCA normals
+    (``config.normal_k`` neighbours) and then registers (reference
+    icp.hpp:166-171)."""
+    normals = estimate_normals(tgt.points, tgt.mask, k=config.normal_k)
+    return icp_point_to_plane(src, tgt, normals, config, init_transform)

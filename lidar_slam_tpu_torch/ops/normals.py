@@ -1,4 +1,4 @@
-"""Count-adaptive radius PCA normals (port of ``lidar_slam_tpu/ops/normals.py``).
+"""PCA surface normals (port of ``lidar_slam_tpu/ops/normals.py``).
 
 The main path's normals are ``estimate_normals_adaptive`` with a slab window
 over the x-sorted cloud: two neighbour-count probes pick a per-point radius
@@ -14,6 +14,12 @@ Unlike the JAX package, the moments are accumulated directly in f32
 the TPU's matrix unit only. Tiles are processed in chunks so the (tiles, ts,
 window) distance block stays bounded. This is plain PyTorch, not a kernel;
 the x-slab sweeps are the next candidate for a hand-written one.
+
+``estimate_normals`` is the reference-shaped k-NN PCA (``normal_method=
+"knn"``): the exact k nearest neighbours (``ops/knn.knn``), their covariance
+about the centroid, the smallest eigenvector. ``stride > 1`` (radius and
+adaptive) computes the normals of every stride-th row and repeats each one
+over the skipped rows.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import math
 
 import torch
 
-from .knn import sq_dist
+from .knn import knn, sq_dist
 
 _EPS = 1e-12
 _CHUNK_ELEMS = 1 << 26  # distance-block elements per chunk of tiles
@@ -69,6 +75,49 @@ def smallest_eigvec_3x3(A: torch.Tensor) -> torch.Tensor:
     ok = nrm[..., 0] > 1e-10
     return torch.where(ok[..., None], v / torch.clamp(nrm, min=_EPS),
                        fallback.expand(v.shape))
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (..., N, C), idx (..., M, k) -> (..., M, k, C), lane by lane."""
+    lead = x.shape[:-2]
+    n_lanes = math.prod(lead)
+    N = x.shape[-2]
+    off = (torch.arange(n_lanes, device=x.device) * N).reshape(*lead, 1, 1)
+    flat = (idx.to(torch.int64) + off).reshape(-1)
+    return x.reshape(-1, x.shape[-1])[flat].reshape(*idx.shape, x.shape[-1])
+
+
+def _orient_up(n: torch.Tensor, degenerate: torch.Tensor) -> torch.Tensor:
+    """Flip to normal.z >= 0; (0, 0, 1) where ``degenerate``."""
+    n = torch.where(n[..., 2:3] < 0, -n, n)
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
+    return torch.where(degenerate[..., None], up.expand(n.shape), n)
+
+
+def estimate_normals(pts: torch.Tensor, mask: torch.Tensor, k: int = 20,
+                     chunk: int = 2048) -> torch.Tensor:
+    """k-NN PCA normals of a padded (..., N, 3) cloud (each leading-dim lane
+    on its own): the k nearest valid points (self included), the covariance
+    of the valid ones about their centroid, the smallest eigenvector
+    flipped to +z; (0, 0, 1) for rows with fewer than 3 valid neighbours and
+    for invalid rows."""
+    idx, _ = knn(pts, pts, mask, k=k, chunk=chunk)
+    nbr = _take_rows(pts, idx)                                   # (..., N, k, 3)
+    w = _take_rows(mask[..., None].to(pts.dtype), idx)[..., 0]   # (..., N, k)
+    cnt = torch.sum(w, dim=-1)
+    cnt_safe = torch.clamp(cnt, min=1.0)
+    centroid = torch.sum(nbr * w[..., None], dim=-2) / cnt_safe[..., None]
+    d = (nbr - centroid[..., None, :]) * w[..., None]
+    cov = torch.einsum("...ki,...kj->...ij", d, d) / cnt_safe[..., None, None]
+    return _orient_up(smallest_eigvec_3x3(cov), (cnt < 3.0) | ~mask)
+
+
+def _repeat_rows(sub: torch.Tensor, stride: int, mask: torch.Tensor) -> torch.Tensor:
+    """Normals of every ``stride``-th row repeated over the skipped rows
+    (truncated to N); invalid rows get (0, 0, 1)."""
+    n = torch.repeat_interleave(sub, stride, dim=0)[: mask.shape[0]]
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
+    return torch.where(mask[:, None], n, up.expand(n.shape))
 
 
 def _slab_starts(x_mono: torch.Tensor, tile_min_x: torch.Tensor, n: int,
@@ -173,23 +222,27 @@ def _normals_radius_slab(pts_m: torch.Tensor, mask: torch.Tensor,
         ],
         dim=-2,
     )
-    n = smallest_eigvec_3x3(cov)
-    n = torch.where(n[..., 2:3] < 0, -n, n)
-    degenerate = (cnt < 3.0) | ~mask
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=pts_m.dtype, device=pts_m.device)
-    return torch.where(degenerate[..., None], up.expand(n.shape), n)
+    return _orient_up(smallest_eigvec_3x3(cov), (cnt < 3.0) | ~mask)
 
 
 def estimate_normals_radius(pts: torch.Tensor, mask: torch.Tensor,
-                            radius=1.0, window: int = 0) -> torch.Tensor:
+                            radius=1.0, window: int = 0,
+                            stride: int = 1) -> torch.Tensor:
     """Radius-neighbourhood moment PCA normals of an x-sorted cloud.
 
     ``radius``: scalar or per-point (N,) tensor. ``window > 0`` sweeps x-slab
     windows of that many points; ``window <= 0`` (or >= N) one window of the
     whole cloud, which is the dense neighbourhood. Rows with fewer than 3
-    neighbours, and invalid rows, get (0, 0, 1)."""
+    neighbours, and invalid rows, get (0, 0, 1). ``stride > 1``: the normals
+    of ``pts[::stride]`` (same window), repeated over the skipped rows."""
     N = pts.shape[0]
     radius = torch.as_tensor(radius, dtype=pts.dtype, device=pts.device)
+    if stride > 1:
+        sub = estimate_normals_radius(
+            pts[::stride], mask[::stride],
+            radius[::stride] if radius.dim() == 1 else radius, window=window,
+        )
+        return _repeat_rows(sub, stride, mask)
     pts_m = torch.where(mask[:, None], pts, torch.full_like(pts, 1.0e6))
     return _normals_radius_slab(pts_m, mask, radius,
                                 N if window <= 0 else window)
@@ -204,10 +257,10 @@ def estimate_normals_adaptive(
     r_max: float = 20.0,
     window: int = 0,
     probe_stride: int = 1,
+    stride: int = 1,
 ) -> torch.Tensor:
     """Count-targeted per-point-radius moment normals (k-NN-ball emulation),
-    as ``lidar_slam_tpu.ops.normals.estimate_normals_adaptive`` with
-    ``stride=1``:
+    as ``lidar_slam_tpu.ops.normals.estimate_normals_adaptive``:
 
     1. neighbour counts at the two ``r_probe`` radii in one sweep (on every
        ``probe_stride``-th point, the radius then replicated to the skipped
@@ -215,7 +268,18 @@ def estimate_normals_adaptive(
     2. local dimension log(c_hi/c_lo) / log(r_hi/r_lo), clipped to [0.7, 2.5],
     3. r_i = r_hi * (k / c_hi)^(1/dim), clipped to [r_min, r_max],
     4. one moment pass with the per-point radii.
+
+    ``stride > 1``: all of that on ``pts[::stride]`` with the count target
+    ``max(k // stride, 4)`` (the thinned cloud holds 1/stride of the
+    neighbours), the normals repeated over the skipped rows.
     """
+    if stride > 1:
+        sub = estimate_normals_adaptive(
+            pts[::stride], mask[::stride], k=max(k // stride, 4),
+            r_probe=r_probe, r_min=r_min, r_max=r_max, window=window,
+            probe_stride=probe_stride,
+        )
+        return _repeat_rows(sub, stride, mask)
     N = pts.shape[0]
     pts_m = torch.where(mask[:, None], pts, torch.full_like(pts, 1.0e6))
     r_lo, r_hi = float(r_probe[0]), float(r_probe[1])

@@ -5,7 +5,10 @@
   ``scatter_reduce("amax")`` seeded at -1e9, the same values as the TPU's
   tiled masked max), empty bins = 0;
 - database search: ONE matmul of the 60 column-rolled queries against the
-  stacked descriptor DB (float32 with TF32 off), then the best shift.
+  stacked descriptor DB (float32 with TF32 off), then the best shift;
+- the ring-key prefilter (``LoopClosureConfig.ring_key_prefilter``): the L1
+  distance of the rotation-invariant ring keys picks k survivors, and only
+  they get the shifted-cosine search.
 """
 
 from __future__ import annotations
@@ -51,6 +54,16 @@ def scan_context(pts: torch.Tensor, mask: torch.Tensor,
     return desc.reshape(*lead, R, S)
 
 
+def ring_key(desc: torch.Tensor) -> torch.Tensor:
+    """Row-wise mean over sectors (reference scan_context.hpp:107-109)."""
+    return torch.mean(desc, dim=-1)
+
+
+def sector_key(desc: torch.Tensor) -> torch.Tensor:
+    """Column-wise mean over rings (reference scan_context.hpp:113-116)."""
+    return torch.mean(desc, dim=-2)
+
+
 def _rolled_queries(desc: torch.Tensor) -> torch.Tensor:
     """(S, R*S): the query rolled right by each shift s, flattened."""
     S = desc.shape[-1]
@@ -73,6 +86,31 @@ def sc_distances(query: torch.Tensor, db: torch.Tensor,
     dist = 1.0 - best_sim
     dist = torch.where(norm < 1e-10, torch.ones_like(dist), dist)
     return dist, best_shift
+
+
+def sc_distances_ring_prefiltered(
+    query: torch.Tensor, db: torch.Tensor, db_norm: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-stage retrieval: the k DB entries nearest the query in ring-key L1
+    distance (equal distances keep the lower index, as ``lax.top_k``; empty
+    rows share a zero key), then :func:`sc_distances` on those only.
+    Returns ``(dist (F,), best_shift (F,))`` with the non-survivors at +inf
+    and shift 0."""
+    F = db.shape[0]
+    l1 = torch.sum(torch.abs(ring_key(db) - ring_key(query)[None, :]), dim=-1)
+    idx = torch.sort(l1, stable=True).indices[:k]
+    d_k, s_k = sc_distances(query, db[idx], db_norm[idx])
+    dist = torch.full((F,), float("inf"), dtype=query.dtype, device=query.device)
+    shift = torch.zeros((F,), dtype=s_k.dtype, device=query.device)
+    dist[idx] = d_k
+    shift[idx] = s_k
+    return dist, shift
+
+
+def sc_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance of two descriptors (reference scan_context.hpp:90-102)."""
+    d, _ = sc_distances(a, b[None], torch.sqrt(torch.sum(b * b))[None])
+    return d[0]
 
 
 def shift_to_yaw(shift: torch.Tensor, num_sectors: int) -> torch.Tensor:

@@ -187,7 +187,7 @@ class BatchedSlamEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "BatchedSlamEngine(mesh=...) is not ported: multi-GPU "
-                "sharding is ROADMAP.md Queue 1, item 17")
+                "sharding is ROADMAP.md Queue 1, item 1")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -198,7 +198,6 @@ class BatchedSlamEngine:
         self.batch = batch
         self._optimize_midrun = optimize_midrun
         self._nn1 = pipe.resolve_nn1(config)
-        pipe.normals_fn(config)  # an estimator that is not ported raises here
         self._resident: Optional[tuple] = None
         self.state = init_states(config, batch, self.device)
         self._frame = 0

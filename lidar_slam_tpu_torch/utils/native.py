@@ -9,7 +9,9 @@
 - ``FrameLoader`` is the readahead loader the command line runs: worker
   threads read (and, when asked, voxelize and estimate radius normals for)
   the next ``window`` frames while the device works on the current one.
-- ``normals_radius_host`` computes radius normals for one cloud.
+- ``normals_radius_host`` computes radius normals for one cloud, and
+  ``normals_knn_host`` the reference-exact k-NN PCA normals (a KD-tree, in
+  float64).
 
 The library is built on first use from ``native/ply_io.cpp`` with the flags
 of ``native/Makefile``, into ``build/native/`` under a name keyed on a hash
@@ -91,6 +93,8 @@ def get_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_char_p, fp, c_long]
     lib.lidar_normals_radius.restype = None
     lib.lidar_normals_radius.argtypes = [fp, c_long, c_float, fp]
+    lib.lidar_normals_knn.restype = None
+    lib.lidar_normals_knn.argtypes = [fp, c_long, c_long, fp]
     lib.lidar_prefetch_create_v3.restype = ctypes.c_void_p
     lib.lidar_prefetch_create_v3.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), c_int, c_long, c_int, c_int, c_float,
@@ -144,6 +148,18 @@ def normals_radius_host(pts: np.ndarray, radius: float) -> np.ndarray:
     return out
 
 
+def normals_knn_host(pts: np.ndarray, k: int = 20) -> np.ndarray:
+    """Reference-exact k-NN PCA normals of (n, 3) points (reference
+    icp.hpp:23-67: a KD-tree's k nearest, covariance, smallest eigenvector
+    flipped to +z), on the host."""
+    lib = get_lib()
+    pts = np.ascontiguousarray(pts, np.float32)
+    out = np.empty_like(pts)
+    lib.lidar_normals_knn(pts.ctypes.data_as(_FP), len(pts), k,
+                          out.ctypes.data_as(_FP))
+    return out
+
+
 class FrameLoader:
     """Asynchronous readahead frame loader over the native prefetcher.
 
@@ -151,7 +167,8 @@ class FrameLoader:
     compute. ``cap``: most points handed out per frame; ``raw_cap``: most
     raw points read before voxelization (default ``cap``);
     ``normals_radius > 0``: the workers also estimate radius normals, read
-    with :meth:`get_with_normals`; ``start``: first frame that will be
+    with :meth:`get_with_normals`; ``normals_k > 0``: k-NN PCA normals
+    instead (``normals_knn_host``'s); ``start``: first frame that will be
     requested (checkpoint resume): the workers begin prefetching there, so
     ``get(start)`` does not wait behind ``window`` frames nobody consumes.
     Frames must be requested in ascending order. A frame that cannot be read
@@ -160,12 +177,14 @@ class FrameLoader:
 
     def __init__(self, paths: List[str], cap: int = 1 << 18, window: int = 8,
                  threads: int = 2, voxel: float = 0.0, raw_cap: int = 0,
-                 normals_radius: float = 0.0, start: int = 0):
+                 normals_radius: float = 0.0, start: int = 0,
+                 normals_k: int = 0):
         self._handle = None
         self.paths = list(paths)
         self.cap = cap
         self.voxel = voxel
         self.normals_radius = normals_radius
+        self.normals_k = normals_k
         self._lib = get_lib()
         if self.paths:
             arr = (ctypes.c_char_p * len(self.paths))(
@@ -174,7 +193,7 @@ class FrameLoader:
             self._handle = self._lib.lidar_prefetch_create_v3(
                 arr, len(self.paths), cap, window, threads,
                 ctypes.c_float(voxel), raw_cap or cap,
-                ctypes.c_float(normals_radius), start, 0,
+                ctypes.c_float(normals_radius), start, normals_k,
             )
             if not self._handle:
                 raise RuntimeError("lidar_prefetch_create_v3 returned no handle")
@@ -201,9 +220,11 @@ class FrameLoader:
         return out[:n]
 
     def get_with_normals(self, frame: int):
-        """``(points, normals)`` of ``frame``; needs ``normals_radius > 0``."""
-        if self.normals_radius <= 0:
-            raise ValueError("the loader was created without normals_radius")
+        """``(points, normals)`` of ``frame``; needs ``normals_radius > 0``
+        or ``normals_k > 0``."""
+        if self.normals_radius <= 0 and self.normals_k <= 0:
+            raise ValueError("the loader was created without normals_radius "
+                             "or normals_k")
         handle = self._open(frame)
         out = np.empty((self.cap, 3), np.float32)
         nrm = np.empty((self.cap, 3), np.float32)

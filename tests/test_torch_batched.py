@@ -127,6 +127,27 @@ def test_icp_takes_lanes_with_the_fused_backend(rng):
                                    rtol=0, atol=1e-6)
 
 
+def test_normal_equations_round_the_same_for_any_lane_count(rng):
+    """One Gauss-Newton step of a lane is bit-identical whether the lane is
+    alone, unbatched, or one of 2 or 12 (each lane's normal equations are
+    their own 2-D product: a batched matmul may take another plan, and so
+    another rounding, for another batch size)."""
+    from lidar_slam_tpu_torch.ops.icp import solve_point_to_plane
+
+    src = rng.normal(0, 20, (12, 4096, 3)).astype(np.float32)
+    tgt = src + rng.normal(0, 0.05, src.shape).astype(np.float32)
+    nrm = rng.normal(size=src.shape).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    w = rng.uniform(size=src.shape[:2]) < 0.9
+    args = [_t(x) for x in (src, tgt, nrm, w)]
+    for B in (12, 2):
+        lanes = solve_point_to_plane(*(a[:B] for a in args))
+        for b in range(B):
+            one = solve_point_to_plane(*(a[b : b + 1] for a in args))[0]
+            flat = solve_point_to_plane(*(a[b] for a in args))
+            assert torch.equal(lanes[b], one) and torch.equal(one, flat)
+
+
 def _cfg():
     cfg = config.apply_mode(config.tiny_config(**TINY), "fast").replace(**KNOBS)
     assert not cfg.optimize_midrun and cfg.knn_backend == "slab_pallas"
@@ -222,7 +243,7 @@ def test_resident_equals_streaming_and_reset_reruns(seqs, batched):
 
 def test_engine_refuses_mesh_and_bad_inputs():
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item 1\b"):
         BatchedSlamEngine(cfg, 2, "cpu", mesh=object())
     eng = BatchedSlamEngine(cfg, 2, "cpu")
     with pytest.raises(ValueError, match="lanes"):

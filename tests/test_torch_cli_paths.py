@@ -2,7 +2,7 @@
 resident run, the device voxelizer and warm-up passes against the JAX
 package's command line with the same flags and against the port's own
 streaming run; a profiler trace, the flags that exist for the other
-runtime, what is not ported, ``convert``. (The modes and host normals over a
+runtime, the options once refused (now ported), ``convert``. (The modes and host normals over a
 route with a revisit are in ``test_torch_cli_modes.py``.)
 
 As in ``test_torch_cli.py`` the runs take 2,048-point clouds and a tighter
@@ -107,17 +107,20 @@ def test_modes_host_normals_and_profile(data, tmp_path):
 
 
 @pytest.mark.parametrize("flags,text", [
-    (("--knn-backend", "slab"), "knn_backend='slab'"),
-    (("--knn-backend", "grid"), "knn_backend='grid'"),
-    (("--normal-method", "knn"), "normal_method='knn'"),
-    (("--normal-stride", "2"), "normal_stride"),
+    (("--knn-backend", "slab"), "backend=slab"),
+    (("--knn-backend", "grid"), "backend=grid"),
+    (("--normal-method", "knn"), "backend=auto"),
+    (("--normal-stride", "2"), "backend=auto"),
 ])
 def test_unported_flags_fail_by_name(data, tmp_path, capsys, flags, text):
-    rc = cli.main(["run", "--data-dir", data, "--out-dir", str(tmp_path / "o"),
-                   "--preset", "tiny", "--cpu", *flags])
-    assert rc != 0
-    err = capsys.readouterr().err
-    assert text in err and "item 16" in err
+    """The options that once failed by name (the pruned odometry searches,
+    the k-NN normals, the normal stride) are ported: each run exits 0 with
+    one finite pose per frame, and nothing says "not ported"."""
+    traj = _run(data, str(tmp_path / "o"), *flags)
+    assert traj.shape == (SHORT, 12) and np.isfinite(traj).all()
+    out = capsys.readouterr()
+    assert text in out.out
+    assert "not ported" not in out.out + out.err
 
 
 def test_convert_and_missing_frames(tmp_path, data, capsys):

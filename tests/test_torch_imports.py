@@ -178,23 +178,39 @@ def test_batched_engine_default_device_is_the_card():
     eng = BatchedSlamEngine(cfg, 2, "cpu")
     assert eng.state.poses.shape[:2] == (2, 8)
     assert eng.state.poses.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item 1\b"):
         BatchedSlamEngine(cfg, 2, "cpu", mesh=object())
 
 
 def test_unported_options_fail_by_name():
-    """What is still to port raises and names its ROADMAP item; the options
-    this package now covers construct."""
+    """What is still to port (sharding over several cards) raises and names
+    its ROADMAP item; every engine option now constructs, with the backend
+    and the estimator it names."""
+    import torch
+
     from lidar_slam_tpu_torch.config import tiny_config
+    from lidar_slam_tpu_torch.models import pipeline
     from lidar_slam_tpu_torch.models.pipeline import SlamEngine
+    from lidar_slam_tpu_torch.ops.slab_nn import nn1_slab
+    from lidar_slam_tpu_torch.parallel import BatchedSlamEngine
 
     base = tiny_config(max_frames=8)
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item 1\b"):
+        BatchedSlamEngine(base, 2, "cpu", mesh=object())
+    assert pipeline.resolve_nn1(base.replace(knn_backend="slab")) is nn1_slab
+    assert hasattr(pipeline.resolve_nn1(base.replace(knn_backend="grid")),
+                   "prepare")
+    pts = torch.zeros((16, 3))
+    mask = torch.arange(16) < 12
+    for kw in (dict(normal_method="knn"), dict(normal_stride=2),
+               dict(normal_method="radius", normal_stride=3)):
+        n = pipeline.normals_fn(base.replace(**kw))(pts, mask)
+        assert n.shape == (16, 3)
     for kw in (dict(knn_backend="slab"), dict(knn_backend="grid"),
-               dict(normal_method="knn"), dict(normal_stride=2)):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            SlamEngine(base.replace(**kw), "cpu")
-    for kw in (dict(optimize_midrun=True), dict(host_voxelize=False),
+               dict(normal_method="knn"), dict(normal_stride=2),
+               dict(optimize_midrun=True), dict(host_voxelize=False),
                dict(host_voxelize=True, host_normals=True),
                dict(normal_method="radius"), dict(knn_backend="xla"),
                dict(knn_backend="pallas"), dict(knn_backend="slab_pallas")):
         SlamEngine(base.replace(**kw), "cpu")
+        BatchedSlamEngine(base.replace(**kw), 2, "cpu")

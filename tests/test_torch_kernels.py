@@ -335,3 +335,24 @@ def test_batched_engine_on_gpu_matches_cpu(cuda):
     assert l_g["match_slab"] > 0 and l_g["nn1"] > 0
     assert p_g == p_c and all(len(p) >= 1 for p in p_c)
     assert np.abs(t_g[..., :3, 3] - t_c[..., :3, 3]).max() < 1e-3
+
+
+@pytest.mark.gpu
+def test_normal_equations_round_the_same_for_any_lane_count(cuda):
+    """On the card, one Gauss-Newton step of a lane is bit-identical alone
+    and as one of 4 or 12 lanes (cuBLAS plans a batched matmul per batch
+    size, so ``ops/icp.py`` forms each lane's normal equations as its own
+    2-D product)."""
+    from lidar_slam_tpu_torch.ops.icp import solve_point_to_plane
+
+    rng = _gen(3)
+    src = rng.normal(0, 20, (12, 4096, 3)).astype(np.float32)
+    tgt = src + rng.normal(0, 0.05, src.shape).astype(np.float32)
+    nrm = rng.normal(size=src.shape).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    w = rng.uniform(size=src.shape[:2]) < 0.9
+    args = [_dev(x, cuda) for x in (src, tgt, nrm, w)]
+    for B in (12, 4):
+        lanes = solve_point_to_plane(*(a[:B] for a in args))
+        for b in range(B):
+            _exact(lanes[b], solve_point_to_plane(*(a[b : b + 1] for a in args))[0])

@@ -72,11 +72,31 @@ Phases, one line each (plus details):
    0.01 degrees), the slab and grid searches against K2 at 4,096 x 32,768
    (equal on every row whose K2 neighbour lies inside their search), the
    ring-key prefilter's survivors against the CPU's on a 4,608-frame DB;
-   then each module's ms per call on the card.
+   then each module's ms per call on the card;
+8. the port's multi-device code (``parallel/``), shard i on ``cuda:(i %
+   card count)`` (on one card every shard shares it, and no copy between
+   cards is measured): **sharded-search**: ``nn1_target_sharded`` over 4
+   shards at 1 x 4,096 x 131,072 (ties across each shard boundary),
+   ``nn1_source_sharded`` at 131,072 x 32,768 and ``sc_topk_sharded`` on a
+   4,608-frame DB, each equal bit for bit to the unsharded call, with both
+   calls' ms; **sharded-dense**: ``examples/sharded_dense_pipeline.py`` at
+   full width (6 frames of 131,072 points through ``init_frame``, ``step``
+   and ``loop_tick`` with ``make_sharded_nn1`` over 4 shards): ATE below
+   1.0 m and the trajectory of unsharded K2 bit for bit; **dryrun**:
+   ``dryrun_multichip(4)`` at 131,072 points; **batch-default**: ``run-batch
+   --mode default --resident`` on [cli-batch]'s lanes 0 and 1, then the
+   same prepared scans through ``BatchedSlamEngine(mesh=make_mesh({"seq":
+   2, "pts": 1}))`` (the same loops, firing ticks and mid-run chunks, poses
+   within 1e-5 m) and each lane alone through a batch of 1 (the same loops
+   and ticks, poses within 1e-3 m); **batch-fidelity**: the same for
+   ``--mode fidelity --no-host-voxelize`` on two raw 64-frame routes with a
+   revisit, rendered by two spawned processes from the start.
 
 Every phase counts each kernel's launches by launch shape (lanes x sources
 x targets, and K1's window); every launch must fall in a kernel row
-measured at its own shape. The last lines are a JSON line of per-kernel
+measured at its own shape: a K2 shape that no row of phases 3 and 6 covers
+gets a row measured on the first inputs the main path gave it there
+(``missing_k2_rows``). The last lines are a JSON line of per-kernel
 results, the card's name and power limit, and ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without printing the result lines. There is
 no CPU fallback: without CUDA it exits with code 2.
@@ -85,12 +105,14 @@ no CPU fallback: without CUDA it exits with code 2.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 500
@@ -124,6 +146,14 @@ RING_PREFILTER = 64
 # line's power-of-two pad (the loop verification's K2 targets)
 RING_PAD = 16384
 PREFILTER_DB = 4608  # the slice config's keyframe-DB capacity
+# [sharded-*], [dryrun]: the pts axis, and examples/sharded_dense_pipeline.py's
+# 131,072-point dense scans (its default 6 frames)
+SHARDS = 4
+DENSE_POINTS = 131072
+DENSE_FRAMES = 6
+# [batch-fidelity]: two raw lanes of 64 frames (the tick of frame 60 can
+# close a loop on the revisit of the route's last eighth)
+FIDB_FRAMES = 64
 ARTIFACTS = ("trajectory.txt", "trajectory_tum.txt", "map.ply",
              "occupancy.npz", "occupancy.pgm", "metrics.jsonl")
 
@@ -254,7 +284,8 @@ def k2_row(s, t, m, phase, rates, what, reps=10, plain_reps=3):
     device time, the plain time and its bound; the JSON row, named
     ``nn1@LxSxT`` after the launch it stands for and counted in ``phase``.
     The bound counts the distances this input needs: every source row
-    against every valid target row."""
+    against every valid target row. ``T`` is named padded to K2's 512-row
+    tile, as the launch is."""
     import torch
 
     from lidar_slam_tpu_torch.ops import knn_cuda
@@ -269,12 +300,12 @@ def k2_row(s, t, m, phase, rates, what, reps=10, plain_reps=3):
     ms = time_graph_ms(lambda: query(s), reps=reps)
     pms = time_ms(lambda: knn_cuda.nn1_torch(s, t, m), reps=plain_reps)
     L, S, T = s.shape[0], s.shape[1], t.shape[1]
+    Tp = -(-T // knn_cuda._NN1_TILE) * knn_cuda._NN1_TILE
     valid = int(m.sum())
     b, by = bound_ms(S * valid, _nbytes(s, t, m, *got), rates)
-    splits, tiles_per = knn_cuda._nn1_plan(L, S, -(-T // 512) * 512,
-                                           rates["sms"])
-    shape = f"{L}x{S}x{T}"
-    log(f"[kernels] K2 nn1 {shape} ({what}; {valid} valid targets): exact "
+    splits, tiles_per = knn_cuda._nn1_plan(L, S, Tp, rates["sms"])
+    shape = f"{L}x{S}x{Tp}"  # the launch's shape: T padded to the tile
+    log(f"[kernels] K2 nn1 {shape} ({what}; {T} targets, {valid} valid): exact "
         f"(idx, d2); plan {splits} splits x {tiles_per} tiles; kernel "
         f"{ms:.4f} ms, bound {b:.4f} ms ({by}), plain {pms:.4f} ms")
     return dict(
@@ -625,10 +656,15 @@ def launch_shape(name: str, args) -> str:
 class KernelShapes:
     """Launches of each kernel by its launch shape (``launch_shape``),
     counted while a ``with`` block runs (it wraps the kernels' ``launch``
-    and calls the originals): ``shapes["nn1"]["3x4096x32768"]``."""
+    and calls the originals): ``shapes["nn1"]["3x4096x32768"]``. It also
+    keeps a copy of the first inputs K2 was given at each launch shape
+    (``inputs[shape] = (src, tgt, mask)``, lanes first), so that a shape
+    no kernel row covers yet can be measured on the main path's own data
+    (``missing_k2_rows``)."""
 
     def __init__(self):
         self.shapes = {"match_slab": {}, "nn1": {}}
+        self.inputs = {}
 
     def __enter__(self):
         from lidar_slam_tpu_torch.ops import knn_cuda
@@ -641,11 +677,33 @@ class KernelShapes:
                 counts = self.shapes[k.name]
                 counts[key] = counts.get(key, 0) + 1
             k.launch = launch
+        self._prepare = prepare = knn_cuda._nn1_prepare_cuda
+        inputs = self.inputs
+
+        def spy_prepare(tgt, mask):
+            query = prepare(tgt, mask)
+
+            def spy_query(src):
+                T = tgt.shape[-2]
+                t, m = tgt.reshape(-1, T, 3), mask.reshape(-1, T)
+                s3 = src.reshape(-1, src.shape[-2], 3)
+                Tp = -(-T // knn_cuda._NN1_TILE) * knn_cuda._NN1_TILE
+                key = f"{t.shape[0]}x{s3.shape[1]}x{Tp}"
+                if key not in inputs:
+                    inputs[key] = (s3.clone(), t.clone(), m.clone())
+                return query(src)
+
+            return spy_query
+
+        knn_cuda._nn1_prepare_cuda = spy_prepare
         return self
 
     def __exit__(self, *exc):
+        from lidar_slam_tpu_torch.ops import knn_cuda
+
         for k, orig in self._orig.items():
             k.launch = orig
+        knn_cuda._nn1_prepare_cuda = self._prepare
 
 
 class RunSpy(KernelShapes):
@@ -1453,6 +1511,451 @@ def check_modules(ring_dirs, corridor, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# [sharded-search], [sharded-dense], [dryrun], [batch-modes]: the port's
+# multi-device code (parallel/) with every shard on this host's cards
+# ---------------------------------------------------------------------------
+
+
+def shard_devices(n: int) -> list:
+    """Shard i on ``cuda:(i % card count)``; prints the mapping."""
+    import torch
+
+    count = torch.cuda.device_count()
+    devs = [f"cuda:{i % count}" for i in range(n)]
+    log(f"[mesh] {n} shards on {count} card(s): "
+        + ", ".join(f"shard {i} -> {d}" for i, d in enumerate(devs)))
+    if count == 1:
+        log("[mesh] one card: every shard shares it, so no copy between two "
+            "cards was measured")
+    return devs
+
+
+def render_dense():
+    """``examples/sharded_dense_pipeline.py``'s scans: its world (ground
+    every 0.12 m) and route, the first ``DENSE_FRAMES`` frames rendered at
+    ``DENSE_POINTS`` points; with their ground truth."""
+    import numpy as np
+
+    from lidar_slam_tpu_torch.utils.dataset import (
+        generate_trajectory,
+        generate_world,
+        render_scan,
+        route_half_for,
+    )
+
+    half = route_half_for(60)
+    world = generate_world(0, route_half=half, ground_step=0.12)
+    gt = generate_trajectory(60, half=half)[:DENSE_FRAMES]
+    rng = np.random.default_rng(0)
+    scans = [render_scan(world, gt[i], rng, max_range=45.0,
+                         max_points=DENSE_POINTS) for i in range(DENSE_FRAMES)]
+    return scans, gt
+
+
+def pad_dense(scan, dev):
+    """A dense scan x-sorted (the host-voxelized input contract) and
+    padded to ``DENSE_POINTS`` rows on the card, with its row count."""
+    import numpy as np
+    import torch
+
+    s = scan[np.argsort(scan[:, 0], kind="stable")]
+    buf = np.zeros((DENSE_POINTS, 3), np.float32)
+    n = min(len(s), DENSE_POINTS)
+    buf[:n] = s[:n]
+    return torch.from_numpy(buf).to(dev), n
+
+
+def scan_context_db(scans, dev):
+    """A ``PREFILTER_DB``-row keyframe DB of Scan Context descriptors: the
+    engine route's scans in its first rows, the rest empty (distance 1.0
+    to any query)."""
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.ops.scan_context import scan_context
+
+    descs = []
+    for s in scans:
+        pts = torch.from_numpy(np.ascontiguousarray(s, np.float32)).to(dev)
+        descs.append(scan_context(pts, torch.ones(len(s), dtype=torch.bool,
+                                                  device=dev)))
+    db = torch.zeros((PREFILTER_DB, *descs[0].shape), device=dev)
+    db[: len(descs)] = torch.stack(descs)
+    return db
+
+
+def check_sharded_search(dense, corridor, sc_db, devs, dev):
+    """[sharded-search]: each sharded search against the unsharded call on
+    the same inputs, bit for bit (rtol 0, atol 0), and both calls' ms:
+
+    - ``nn1_target_sharded`` over 4 shards at 1 x 4,096 x 131,072 (a dense
+      scan's odometry sample against another's), with equal target rows on
+      both sides of each shard boundary: the lower index must win;
+    - ``nn1_source_sharded`` at 131,072 x 32,768 over 4 shards;
+    - ``sc_topk_sharded`` on a 4,608-frame DB against the unsharded
+      stable-sorted top-k, k = 6 and k = 600 (into the empty rows' ties)."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.ops import scan_context as sc
+    from lidar_slam_tpu_torch.parallel import (
+        make_mesh,
+        nn1_source_sharded,
+        nn1_target_sharded,
+        sc_topk_sharded,
+    )
+
+    mesh = make_mesh({"pts": SHARDS}, devices=devs)
+    out = {}
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            check(x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y),
+                  f"[sharded-search] {what} differs from the unsharded call")
+        return max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(got, want))
+
+    tgt, n_t = pad_dense(dense[0], dev)
+    mask = torch.arange(DENSE_POINTS, device=dev) < n_t
+    s_pts, n_s = pad_dense(dense[1], dev)
+    src = odometry_source(s_pts, torch.arange(DENSE_POINTS, device=dev) < n_s,
+                          4096)
+    size = DENSE_POINTS // SHARDS
+    bounds = [size * i for i in range(1, SHARDS)]
+    for r, b in enumerate(bounds):  # a tie across each shard boundary
+        p = torch.tensor([500.0 + r, -500.0, 250.0], device=dev)
+        tgt[b - 1] = tgt[b] = p
+        mask[b - 1] = mask[b] = True
+        src[r] = p
+    args = (src[None], tgt[None], mask[None])
+    got = nn1_target_sharded(*args, mesh)
+    want = knn_cuda.nn1(*args)
+    err = same(got, want, "nn1_target_sharded 1x4096x131072")
+    same(want, knn_cuda.nn1_torch(*args), "K2 1x4096x131072 (plain)")
+    for r, b in enumerate(bounds):
+        check(int(got[0][0, r]) == b - 1,
+              f"[sharded-search] the tie at shard boundary {b} went to "
+              f"{int(got[0][0, r])}")
+    out["target"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: nn1_target_sharded(*args, mesh)),
+        unsharded_ms=time_ms(lambda: knn_cuda.nn1(*args)))
+
+    big = torch.where((torch.arange(DENSE_POINTS, device=dev) < n_s)[:, None],
+                      s_pts, torch.full_like(s_pts, 1.0e6))
+    t32 = torch.zeros((N_POINTS, 3), device=dev)
+    t32[: len(corridor)] = torch.from_numpy(corridor).to(dev)
+    m32 = torch.arange(N_POINTS, device=dev) < len(corridor)
+    args = (big, t32, m32)
+    err = same(nn1_source_sharded(*args, mesh), knn_cuda.nn1(*args),
+               "nn1_source_sharded 131072x32768")
+    out["source"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: nn1_source_sharded(*args, mesh), reps=5),
+        unsharded_ms=time_ms(lambda: knn_cuda.nn1(*args), reps=5))
+
+    norm = torch.sqrt(torch.sum(sc_db * sc_db, dim=(1, 2)))
+    q = sc_db[N_FRAMES - 20]  # a revisit frame
+    dist, shift = sc.sc_distances(q, sc_db, norm)
+    order = torch.sort(dist, stable=True).indices
+    errs = []
+    for k in (6, 600):
+        want = (dist[order[:k]], order[:k].to(torch.int32),
+                shift[order[:k]].to(torch.int32))
+        errs.append(same(sc_topk_sharded(q, sc_db, norm, k, mesh), want,
+                         f"sc_topk_sharded k={k}"))
+    out["sc_topk"] = dict(
+        max_abs_err=max(errs), top=order[:6].tolist(),
+        ms=time_ms(lambda: sc_topk_sharded(q, sc_db, norm, 6, mesh)),
+        unsharded_ms=time_ms(
+            lambda: torch.sort(sc.sc_distances(q, sc_db, norm)[0],
+                               stable=True).indices[:6]))
+    for name, r in out.items():
+        log(f"[sharded-search] {name}: equal to the unsharded call "
+            f"(max_abs_err {r['max_abs_err']}); {r['ms']:.4f} ms sharded over "
+            f"{SHARDS}, {r['unsharded_ms']:.4f} ms unsharded")
+    log(f"[sharded-search] retrieval top-6 of frame {N_FRAMES - 20}: "
+        f"{out['sc_topk']['top']}")
+    return out
+
+
+def run_sharded_dense(dense, gt, devs, dev):
+    """[sharded-dense]: ``examples/sharded_dense_pipeline.py`` at full
+    width: its world, route and configuration, 131,072-point dense scans
+    through ``pipeline.init_frame``, ``step`` and ``loop_tick`` with
+    ``make_sharded_nn1`` over a 4-shard ``pts`` mesh, each run beside the
+    same run with unsharded K2 (equal bit for bit).
+
+    With the example's ICP budget of 8 iterations the first step (1.2 m
+    from the identity start) does not converge, so every step is rejected
+    and ATE is the route's spread: the JAX engine does the same on these
+    scans. With the default budget of 50 the run tracks, and it must meet
+    the example's check, ATE below 1.0 m; that run is the phase's main
+    path (counted), after the example's own as the warm-up."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.config import ICPConfig, LoopClosureConfig, SlamConfig
+    from lidar_slam_tpu_torch.models import pipeline
+    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.parallel import make_mesh, make_sharded_nn1
+    from lidar_slam_tpu_torch.utils.metrics import ate_rmse
+
+    N = DENSE_POINTS
+    example = SlamConfig(
+        max_raw_points=N, max_points=N, lc_cloud_points=16384, max_frames=16,
+        host_voxelize=True, min_points=1024,
+        loop_check_every=DENSE_FRAMES - 1, loop_start_frame=1,
+        icp=ICPConfig(max_iterations=8, tolerance=1e-4, sample_points=4096,
+                      warm_start=True),
+        lc=LoopClosureConfig(frame_gap=2, verify_sample=2048,
+                             icp_max_iterations=4),
+        normal_window=8192,
+    )
+    tracking = example.replace(
+        icp=dataclasses.replace(example.icp,
+                                max_iterations=ICPConfig().max_iterations))
+    scans = [pad_dense(s, dev) for s in dense]
+    sharded = make_sharded_nn1(make_mesh({"pts": SHARDS}, devices=devs), "pts")
+
+    def drive(cfg, nn1_fn):
+        state = pipeline.init_state(cfg, dev)
+        pipeline.init_frame(state, cfg, *scans[0])
+        torch.cuda.synchronize()
+        ms, found = [], 0
+        for f in range(1, DENSE_FRAMES):
+            t0 = time.perf_counter()
+            pipeline.step(state, cfg, *scans[f], f, nn1_fn)
+            if f == cfg.loop_check_every and f > cfg.loop_start_frame:
+                found += int(pipeline.loop_tick(state, cfg, f).accepted.sum())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        m = pipeline.state_metrics(state)
+        traj = state.poses[: state.n_poses].cpu().numpy().copy()
+        return dict(traj=traj, ms=ms, found=found, ate=ate_rmse(traj, gt),
+                    iters=m["icp_iters"][1:].tolist(),
+                    accepted=int(m["icp_converged"][1:].sum()))
+
+    out = {}
+    for tag, cfg in (("example", example), ("tracking", tracking)):
+        if tag == "tracking":
+            for k in knn_cuda.KERNELS:
+                k.launches = 0
+        with KernelShapes() as spy:
+            run = drive(cfg, sharded)
+        launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+        with KernelShapes() as ref_spy:
+            ref = drive(cfg, knn_cuda.nn1)
+        same = bool(np.array_equal(run["traj"], ref["traj"]))
+        log(f"[sharded-dense] {tag} (ICP budget {cfg.icp.max_iterations}): "
+            f"{DENSE_FRAMES} frames x {N} points, K2 over {SHARDS} shards "
+            f"{np.mean(run['ms']):.1f} ms a frame ({', '.join(f'{x:.1f}' for x in run['ms'])}), "
+            f"unsharded K2 {np.mean(ref['ms']):.1f} ms "
+            f"({', '.join(f'{x:.1f}' for x in ref['ms'])}); ICP iterations "
+            f"{run['iters']}, {run['accepted']} of {DENSE_FRAMES - 1} steps "
+            f"converged; ATE {run['ate']:.4f} m; loops accepted {run['found']}; "
+            f"trajectory {'bit-identical to' if same else 'DIFFERS from'} the "
+            f"unsharded run; K2 launches by shape {spy.shapes['nn1']} "
+            f"(unsharded: {ref_spy.shapes['nn1']})")
+        check(bool(np.isfinite(run["traj"]).all()),
+              f"[sharded-dense] {tag}: non-finite poses")
+        check(same, f"[sharded-dense] {tag}: the sharded run differs from the "
+              f"unsharded one by {float(np.abs(run['traj'] - ref['traj']).max())}")
+        out[tag] = dict(run, launches=launches, spy=spy, ref_ms=ref["ms"])
+    check(out["tracking"]["ate"] < 1.0,
+          f"[sharded-dense] ATE {out['tracking']['ate']} m, the example "
+          "needs < 1.0")
+    check(out["tracking"]["launches"]["nn1"] > 0,
+          "[sharded-dense] K2 was not launched")
+    return out["tracking"]
+
+
+def run_dryrun(devs):
+    """[dryrun]: ``dryrun_multichip(4)`` over the shard devices, at the
+    flagship's 131,072 points."""
+    import numpy as np
+
+    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    for k in knn_cuda.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with KernelShapes() as spy:
+        out = dryrun_multichip(SHARDS, devices=devs, flagship_points=DENSE_POINTS)
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+    log(f"[dryrun] {secs:.2f} s: mesh {out['mesh']}, lanes {out['batch']}, "
+        f"n_poses {out['n_poses']}, retrieval top-1 {out['top1']}, flagship "
+        f"{out['flagship_points']} points; launches {launches}, by shape "
+        f"{spy.shapes}")
+    check(out["top1"] == 3 and np.isfinite(out["flagship_poses"]).all(),
+          "[dryrun] the dry run's checks failed")
+    check(launches["nn1"] > 0, "[dryrun] K2 was not launched")
+    return dict(launches=launches, spy=spy)
+
+
+def run_batch_mode(tag, mode, dirs, extra, work, devs, dev):
+    """``run-batch --mode <mode> --resident`` on two lanes, in this process;
+    then ``BatchedSlamEngine(mesh=make_mesh({"seq": 2, "pts": 1}))`` on the
+    prepared scans the command line handed its engine (the same loops,
+    firing ticks and mid-run chunks; poses within 1e-5 m), and each lane
+    alone through a batch of 1 (the same loops and firing ticks; poses
+    within 1e-3 m, the lane rule). Returns the three runs (launches and
+    shapes)."""
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch import cli
+    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.parallel import batched, make_mesh
+    from lidar_slam_tpu_torch.utils.dataset import load_gt_poses
+    from lidar_slam_tpu_torch.utils.metrics import ate_rmse
+
+    Engine = batched.BatchedSlamEngine
+    preload, finalize, gated = Engine.preload, Engine.finalize, batched.gated_optimize
+    seen, chunks = {}, [0]
+
+    def spy_preload(engine, seqs, frame0=0):
+        seen.setdefault("engine", engine)
+        seen.setdefault("seqs", seqs)
+        return preload(engine, seqs, frame0)
+
+    def spy_finalize(engine):
+        seen.setdefault("odometry", engine.trajectories())
+        return finalize(engine)
+
+    def counted(state, config):
+        chunks[0] += sum(bool(p) for p in state.pending_optimize)
+        return gated(state, config)
+
+    def reset():
+        torch.cuda.synchronize()
+        for k in knn_cuda.KERNELS:
+            k.launches = 0
+        chunks[0] = 0
+
+    def summary(eng, odo, t):
+        return dict(pairs=eng.loop_pairs(), metrics=eng.metrics(),
+                    traj=eng.trajectories(), odo=odo, seconds=t,
+                    chunks=chunks[0],
+                    launches={k.name: k.launches for k in knn_cuda.KERNELS})
+
+    Engine.preload, Engine.finalize = spy_preload, spy_finalize
+    batched.gated_optimize = counted
+    out_dir = os.path.join(work, f"out_{tag}")
+    try:
+        reset()
+        with KernelShapes() as spy:
+            rc = cli.main(["run-batch", "--data-dirs", ",".join(dirs),
+                           "--out-dir", out_dir, "--mode", mode, "--resident",
+                           *extra])
+        Engine.preload, Engine.finalize = preload, finalize
+        check(rc == 0, f"[{tag}] the command line returned {rc}")
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            m = json.load(f)
+        eng, seqs = seen.pop("engine"), seen.pop("seqs")
+        cfg = eng.config
+        base = summary(eng, seen.pop("odometry"), m["resident"]["device_sec"])
+        base["spy"] = spy
+        del eng
+        check(m["mode"] == mode and all(n >= 1 for n in m["loops"]),
+              f"[{tag}] a lane closed no loop: {m['loops']}")
+
+        reset()
+        with KernelShapes() as mspy:
+            meng = Engine(cfg, len(dirs),
+                          mesh=make_mesh({"seq": len(dirs), "pts": 1},
+                                         devices=devs[: len(dirs)]),
+                          optimize_midrun=cfg.optimize_midrun)
+            meng.preload(seqs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meng.run_preloaded()
+            m_odo = meng.trajectories()
+            meng.finalize()
+            torch.cuda.synchronize()
+            meshed = summary(meng, m_odo, time.perf_counter() - t0)
+        meshed["spy"] = mspy
+        del meng
+
+        reset()
+        singles = []
+        with KernelShapes() as sspy:
+            for b in range(len(dirs)):
+                one = Engine(cfg, 1, dev, optimize_midrun=cfg.optimize_midrun)
+                one.preload([seqs[b]])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one.run_preloaded()
+                o_odo = one.trajectories()
+                one.finalize()
+                torch.cuda.synchronize()
+                singles.append(summary(one, o_odo, time.perf_counter() - t0))
+                del one
+        s_launch = {k.name: k.launches for k in knn_cuda.KERNELS}
+    finally:
+        Engine.preload, Engine.finalize = preload, finalize
+        batched.gated_optimize = gated
+
+    gts = [load_gt_poses(os.path.join(d, "poses_gt.txt")) for d in dirs]
+    n = m["frames"]
+    fired = [x["verify_fired"] for x in base["metrics"]]
+    log(f"[{tag}] run-batch --mode {mode}: {len(dirs)} lanes x {n} frames, "
+        f"device {m['resident']['device_sec']:.3f} s "
+        f"({m['resident']['scans_per_sec_device_aggregate']:.3f} scans/s "
+        f"aggregate); loops {m['loops']} {base['pairs']}, verify_fired "
+        f"{fired}, mid-run chunks {base['chunks']}; ATE before finalize "
+        f"{[round(ate_rmse(t, g), 4) for t, g in zip(base['odo'], gts)]}, "
+        f"after {[round(ate_rmse(t, g), 4) for t, g in zip(base['traj'], gts)]}; "
+        f"launches {base['launches']}, by shape {spy.shapes}")
+    diff = max(float(np.abs(meshed[k] - base[k]).max()) for k in ("odo", "traj"))
+    log(f"[{tag}] the same scans over a (seq {len(dirs)}, pts 1) mesh: "
+        f"{meshed['seconds']:.3f} s; loops {meshed['pairs']}, mid-run chunks "
+        f"{meshed['chunks']}; largest pose difference from run-batch "
+        f"{diff:.3e} m; launches {meshed['launches']}, by shape {mspy.shapes}")
+    check(meshed["pairs"] == base["pairs"]
+          and [x["verify_fired"] for x in meshed["metrics"]] == fired
+          and meshed["chunks"] == base["chunks"],
+          f"[{tag}] the meshed engine found other loops, ticks or chunks")
+    check(diff <= 1e-5, f"[{tag}] the meshed engine's poses differ by {diff} m")
+    for b, one in enumerate(singles):
+        d = max(float(np.abs(one[k][0] - base[k][b]).max()) for k in ("odo", "traj"))
+        log(f"[{tag}] lane {b} alone (a batch of 1): {one['seconds']:.3f} s; "
+            f"loops {one['pairs'][0]}, verify_fired "
+            f"{one['metrics'][0]['verify_fired']}; largest pose difference "
+            f"from its run-batch lane {d:.3e} m")
+        check(one["pairs"][0] == base["pairs"][b]
+              and one["metrics"][0]["verify_fired"] == fired[b],
+              f"[{tag}] lane {b} alone found other loops or ticks")
+        check(d <= 1e-3, f"[{tag}] lane {b} alone differs by {d} m")
+    return {tag: dict(launches=base["launches"], spy=spy),
+            f"{tag}-mesh": dict(launches=meshed["launches"], spy=mspy),
+            f"{tag}-singles": dict(launches=s_launch, spy=sspy)}
+
+
+def missing_k2_rows(results, runs, rates) -> list:
+    """A K2 row for each launch shape of ``runs`` that no row of ``results``
+    measured yet, on the first inputs the main path gave K2 at that shape
+    (``KernelShapes.inputs``), counted in the first phase that launched
+    it."""
+    have = {r["name"] for r in results}
+    rows = []
+    for tag, run in runs.items():
+        for shape in run["spy"].shapes["nn1"]:
+            if f"nn1@{shape}" in have:
+                continue
+            s, t, m = run["spy"].inputs[shape]
+            big = s.shape[0] * s.shape[1] * t.shape[1] > 2**31
+            rows.append(k2_row(s, t, m, tag, rates, f"{tag}'s own inputs",
+                               reps=5 if big else 10, plain_reps=2 if big else 3))
+            have.add(f"nn1@{shape}")
+    return rows
+
+
 def count_launches(results, runs) -> None:
     """Give each kernel row its launches by phase at the row's launch shape
     (``runs``: phase -> its ``launches`` and ``spy``); ``launches`` is the
@@ -1507,10 +2010,15 @@ def main() -> int:
         + "".join(f"\n  {ln}" for ln in ptxas))
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    ring_pool = None
+    ring_pool = fid_pool = None
     try:
         # the [rings] routes render on the host while the card works
         ring_pool, ring_jobs, ring_dirs = start_ring_renders(work)
+        fid_dirs = [os.path.join(work, f"fid{b}") for b in range(2)]
+        fid_pool = ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn"))
+        fid_jobs = [fid_pool.submit(render_lane, b, d, FIDB_FRAMES, RAW_POINTS)
+                    for b, d in enumerate(fid_dirs)]
         t0 = time.perf_counter()
         scans, gt, raw = prepare_route()
         log(f"[prep] {N_FRAMES} scans rendered and voxelized on the host in "
@@ -1519,6 +2027,7 @@ def main() -> int:
         results = check_kernels(scans, dev)
         engine = run_engine(scans, gt, dev)
         corridor = (scans[KERNEL_FRAMES[0]], scans[KERNEL_FRAMES[1]])
+        sc_db = scan_context_db(scans, dev)
         del scans
         fast = run_cli_fast(raw, gt, engine, work, dev)
         del raw
@@ -1533,16 +2042,35 @@ def main() -> int:
         results += check_ring_kernels(ring_dirs, dev)
         rings = run_rings(ring_dirs, dev)
         check_modules(ring_dirs, corridor, dev)
+
+        devs = shard_devices(SHARDS)
+        dense, dense_gt = render_dense()
+        check_sharded_search(dense, corridor[0], sc_db, devs, dev)
+        del sc_db
+        sharded = run_sharded_dense(dense, dense_gt, devs, dev)
+        del dense
+        dry = run_dryrun(devs)
+        modes = run_batch_mode(
+            "batch-default", "default",
+            [os.path.join(work, f"lane{b}") for b in range(2)], [], work,
+            devs, dev)
+        for f in fid_jobs:
+            f.result()
+        modes.update(run_batch_mode("batch-fidelity", "fidelity", fid_dirs,
+                                    ["--no-host-voxelize"], work, devs, dev))
     finally:
-        if ring_pool is not None:
-            ring_pool.shutdown(cancel_futures=True)
+        for pool in (ring_pool, fid_pool):
+            if pool is not None:
+                pool.shutdown(cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
     runs = {"engine": engine, "cli-fast": fast, "cli-fidelity": fid,
             "cli-resume": resumed, "cli-batch": batch,
             "cli-batch-singles": batch["singles"],
             **{tag: rings[tag] for tag in ("cli-rings-knn", "rings-engine",
                                            "rings-batch",
-                                           "rings-batch-singles")}}
+                                           "rings-batch-singles")},
+            "sharded-dense": sharded, "dryrun": dry, **modes}
+    results += missing_k2_rows(results, runs, card_rates(dev))
     count_launches(results, runs)
     print(json.dumps({"kernels": results}))
     print(smi)

@@ -25,7 +25,13 @@ import torch
 
 from ..config import ICPConfig, LoopClosureConfig, ScanContextConfig
 from ..ops import knn_cuda, se3
-from ..ops.icp import _gather_rows, _plane_error, icp_point_to_plane, solve_point_to_plane
+from ..ops.icp import (
+    _gather_rows,
+    _plane_error,
+    icp_point_to_plane,
+    lane_compose,
+    solve_point_to_plane,
+)
 from ..ops.scan_context import (
     sc_distances,
     sc_distances_ring_prefiltered,
@@ -277,7 +283,7 @@ def detect_lanes(
             matched, nrm = match(cur)
             delta = solve_point_to_plane(cur, matched, nrm, c_mask,
                                          icp_cfg.solver_damping)
-            T = se3.compose(delta, T)
+            T = lane_compose(delta, T)
         cur = se3.apply(T, c_pts)
         matched, nrm = match(cur)
         return T, _plane_error(cur, matched, nrm, c_w, c_denom)

@@ -45,6 +45,20 @@ def _lane_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, *out.shape[-2:])
 
 
+def lane_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``se3.compose`` of (..., 4, 4) lanes with each lane its own
+    batch-of-one product, so a lane's pose rounds as a one-lane batch's
+    does however many lanes run with it (for :func:`_lane_mm`'s reason;
+    one lane is ``se3.compose`` itself)."""
+    if a.dim() == 2:
+        return se3.compose(a, b)
+    a3, b3 = a.reshape(-1, 4, 4), b.reshape(-1, 4, 4)
+    if a3.shape[0] == 1:
+        return se3.compose(a3, b3).reshape(a.shape)
+    return torch.cat([se3.compose(x, y) for x, y in zip(a3.split(1), b3.split(1))]
+                     ).reshape(a.shape)
+
+
 def solve_point_to_plane(
     src: torch.Tensor,
     tgt_matched: torch.Tensor,
@@ -69,9 +83,20 @@ def solve_point_to_plane(
     return se3.from_rt(se3.exp_so3(x[..., :3]), x[..., 3:])
 
 
+def _lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dim as one 1-D reduction per leading-dim lane,
+    for the reason of :func:`_lane_mm`: a row sum over a batch is split
+    over blocks by the batch's size, and a lane's plane error then decides
+    its convergence test differently alone and in a batch."""
+    flat = x.reshape(-1, x.shape[-1])
+    if flat.shape[0] == 1:
+        return flat[0].sum().reshape(x.shape[:-1])
+    return torch.stack([row.sum() for row in flat]).reshape(x.shape[:-1])
+
+
 def _plane_error(cur, matched, normals, w, denom):
     d = torch.sum((matched - cur) * normals, dim=-1)
-    return torch.sqrt(torch.sum(d * d * w, dim=-1) / denom)
+    return torch.sqrt(_lane_sum(d * d * w) / denom)
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -166,7 +191,7 @@ def icp_point_to_plane(
             delta = solve_point_to_plane(
                 cur, matched, nrm, csrc.mask, config.solver_damping
             )
-            T = se3.compose(delta, T)
+            T = lane_compose(delta, T)
 
     w = src.mask.to(dtype)
     denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)
@@ -197,7 +222,7 @@ def icp_point_to_plane(
         delta = solve_point_to_plane(
             c_cur, c_matched, c_nrm, src.mask, config.solver_damping
         )
-        T_new = torch.where(conv[:, None, None], T, se3.compose(delta, T))
+        T_new = torch.where(conv[:, None, None], T, lane_compose(delta, T))
         a = active
         hist = torch.where(
             a[:, None] & (slots[None, :] == it[:, None]), err[:, None], hist

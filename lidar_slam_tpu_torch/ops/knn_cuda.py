@@ -214,9 +214,10 @@ def _nn1_prepare_cuda(tgt: torch.Tensor, tgt_mask: torch.Tensor):
         idx = torch.empty((B, S), dtype=torch.int32, device=dev)
         d2 = torch.empty((B, S), dtype=torch.float32, device=dev)
         _check_cuda(s, part, tickets, idx, d2, aligned=(soa,))
-        NN1.launch(s.data_ptr(), soa.data_ptr(), B, S, Tp, n_split, tiles_per,
-                   part.data_ptr(), tickets.data_ptr(), idx.data_ptr(),
-                   d2.data_ptr(), _stream(s))
+        with torch.cuda.device(dev):  # the stream's card (a mesh has several)
+            NN1.launch(s.data_ptr(), soa.data_ptr(), B, S, Tp, n_split,
+                       tiles_per, part.data_ptr(), tickets.data_ptr(),
+                       idx.data_ptr(), d2.data_ptr(), _stream(s))
         return idx.reshape(*lead, S), d2.reshape(*lead, S)
 
     return query
@@ -391,13 +392,14 @@ def _slab_query_cuda(src, index: SlabIndex, ts: int, window: int,
     part, tickets = index.scratch[plan]
     _check_cuda(src, index.lut, index.lo, index.inv_h, part, tickets, d2,
                 argm, starts, aligned=(index.tgt8, qn))
-    MATCH_SLAB.launch(
-        src.data_ptr(), B, S, index.tgt8.data_ptr(), index.padded_T,
-        index.lut.data_ptr(), index.lo.data_ptr(), index.inv_h.data_ptr(),
-        margin, ts, window, n_chunk, chunk, part.data_ptr(),
-        tickets.data_ptr(), qn.data_ptr(), d2.data_ptr(), argm.data_ptr(),
-        starts.data_ptr(), _stream(src),
-    )
+    with torch.cuda.device(src.device):
+        MATCH_SLAB.launch(
+            src.data_ptr(), B, S, index.tgt8.data_ptr(), index.padded_T,
+            index.lut.data_ptr(), index.lo.data_ptr(), index.inv_h.data_ptr(),
+            margin, ts, window, n_chunk, chunk, part.data_ptr(),
+            tickets.data_ptr(), qn.data_ptr(), d2.data_ptr(), argm.data_ptr(),
+            starts.data_ptr(), _stream(src),
+        )
     return qn, d2, argm, starts
 
 

@@ -5,7 +5,8 @@
   ``scatter_reduce("amax")`` seeded at -1e9, the same values as the TPU's
   tiled masked max), empty bins = 0;
 - database search: ONE matmul of the 60 column-rolled queries against the
-  stacked descriptor DB (float32 with TF32 off), then the best shift;
+  stacked descriptor DB (float64 sums rounded to float32), then the best
+  shift;
 - the ring-key prefilter (``LoopClosureConfig.ring_key_prefilter``): the L1
   distance of the rotation-invariant ring keys picks k survivors, and only
   they get the shifted-cosine search.
@@ -74,11 +75,17 @@ def sc_distances(query: torch.Tensor, db: torch.Tensor,
                  db_norm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Distance of one (R, S) query to every (F, R, S) DB entry: the min over
     column shifts of 1 - cosine similarity, and the best shift (int64);
-    distance 1.0 where either norm < 1e-10."""
+    distance 1.0 where either norm < 1e-10.
+
+    The dot products accumulate in float64 and round once to float32, so an
+    entry's distance does not depend on how many entries share the product
+    (a GEMM library picks its split of the sum by shape): a DB split over
+    devices (``parallel/sharded_detect.py``) or of another capacity gives
+    the same distances."""
     S = query.shape[-1]
     F = db.shape[0]
     q = _rolled_queries(query)
-    dots = torch.matmul(q, db.reshape(F, -1).T)       # (S, F)
+    dots = torch.matmul(q.double(), db.reshape(F, -1).double().T).float()  # (S, F)
     qn = torch.sqrt(torch.sum(query * query))
     norm = qn * db_norm
     sims = dots / torch.clamp(norm, min=1e-30)[None, :]

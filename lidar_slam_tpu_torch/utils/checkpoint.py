@@ -9,7 +9,9 @@ port's host integers and booleans are written as the 0-d arrays JAX stores,
 its int64 index tensors as int32. A checkpoint written by either engine
 loads into the other: reading goes through
 :func:`lidar_slam_tpu_torch.models.pipeline.state_from_numpy`, the one
-mapping from the JAX field names to the port's state.
+mapping from the JAX field names to the port's state. A lane-stacked state (``parallel.BatchedSlamEngine``)
+is written as the JAX package writes a batched one: every leaf with a
+leading lane axis.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..models.pipeline import SlamState, state_from_numpy
+from ..models.pipeline import SlamState, batched_state_from_numpy, state_from_numpy
 
 
 def _leaf(value) -> np.ndarray:
@@ -31,6 +33,8 @@ def _leaf(value) -> np.ndarray:
         return np.asarray(value, np.bool_)
     if isinstance(value, int):
         return np.asarray(value, np.int32)
+    if isinstance(value, list):  # a lane-stacked state's host scalars
+        return np.asarray([_leaf(v) for v in value])
     raise TypeError(f"unsupported state leaf {type(value).__name__}")
 
 
@@ -58,10 +62,10 @@ def save_state(path: str, state: SlamState, extra: dict | None = None) -> None:
     np.savez_compressed(path, **items)
 
 
-def load_state(path: str, template: SlamState):
+def load_state(path: str, template: SlamState, device=None):
     """Load a checkpoint into the structure of ``template`` (the shapes must
-    match, i.e. the same SlamConfig), onto the template's device. Returns
-    ``(state, extra_dict)``."""
+    match, i.e. the same SlamConfig and lane count), onto ``device`` (by
+    default the template's). Returns ``(state, extra_dict)``."""
     tree: dict = {}
     with np.load(path) as data:
         for key, value in _leaves(template):
@@ -69,14 +73,15 @@ def load_state(path: str, template: SlamState):
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             arr = data[key]
             is_tensor = isinstance(value, torch.Tensor)
-            shape = tuple(value.shape) if is_tensor else ()
+            shape = tuple(value.shape) if is_tensor else np.shape(_leaf(value))
             if arr.shape != shape:
                 raise ValueError(
                     f"checkpoint leaf {key!r} shape {arr.shape} != template "
                     f"{shape} (different SlamConfig?)"
                 )
             # the stored dtype of this leaf, without copying the template
-            tmpl = _leaf(value.new_empty((0,)) if is_tensor else value)
+            tmpl = _leaf(torch.empty((0,), dtype=value.dtype) if is_tensor
+                         else value)
             node = tree
             *parents, name = key.split("/")
             for p in parents:
@@ -86,4 +91,6 @@ def load_state(path: str, template: SlamState):
             k.split("/", 1)[1]: data[k]
             for k in data.files if k.startswith("__extra__/")
         }
-    return state_from_numpy(tree, template.poses.device), extra
+    build = (batched_state_from_numpy if isinstance(template.n_poses, list)
+             else state_from_numpy)
+    return build(tree, template.poses.device if device is None else device), extra

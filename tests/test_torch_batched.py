@@ -28,7 +28,7 @@ from lidar_slam_tpu_torch import config
 from lidar_slam_tpu_torch.models import pipeline
 from lidar_slam_tpu_torch.ops import knn_cuda
 from lidar_slam_tpu_torch.ops.icp import icp_point_to_plane
-from lidar_slam_tpu_torch.parallel import BatchedSlamEngine
+from lidar_slam_tpu_torch.parallel import BatchedSlamEngine, make_mesh
 from lidar_slam_tpu_torch.types import PointCloud
 from lidar_slam_tpu_torch.utils.dataset import (
     generate_trajectory,
@@ -148,6 +148,28 @@ def test_normal_equations_round_the_same_for_any_lane_count(rng):
             assert torch.equal(lanes[b], one) and torch.equal(one, flat)
 
 
+@pytest.mark.parametrize("S", [4096, 32768])
+def test_plane_error_rounds_the_same_for_any_lane_count(rng, S):
+    """A lane's plane error (the ICP's convergence test) is bit-identical
+    alone, unbatched, and as one of 2 or 6 lanes: each lane is its own 1-D
+    sum (``ops/icp._lane_sum``)."""
+    from lidar_slam_tpu_torch.ops.icp import _plane_error
+
+    cur = rng.normal(0, 20, (6, S, 3)).astype(np.float32)
+    matched = cur + rng.normal(0, 0.05, cur.shape).astype(np.float32)
+    nrm = rng.normal(size=cur.shape).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    w = (rng.uniform(size=cur.shape[:2]) < 0.9).astype(np.float32)
+    args = [_t(x) for x in (cur, matched, nrm, w)]
+    denom = args[3].sum(-1)
+    for B in (6, 2):
+        lanes = _plane_error(*(a[:B] for a in args), denom[:B])
+        for b in range(B):
+            one = _plane_error(*(a[b : b + 1] for a in args), denom[b : b + 1])
+            flat = _plane_error(*(a[b] for a in args), denom[b])
+            assert torch.equal(lanes[b], one[0]) and torch.equal(one[0], flat)
+
+
 def _cfg():
     cfg = config.apply_mode(config.tiny_config(**TINY), "fast").replace(**KNOBS)
     assert not cfg.optimize_midrun and cfg.knn_backend == "slab_pallas"
@@ -243,8 +265,10 @@ def test_resident_equals_streaming_and_reset_reruns(seqs, batched):
 
 def test_engine_refuses_mesh_and_bad_inputs():
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 1\b"):
+    with pytest.raises(TypeError, match="Mesh"):
         BatchedSlamEngine(cfg, 2, "cpu", mesh=object())
+    with pytest.raises(ValueError, match="'seq'"):
+        BatchedSlamEngine(cfg, 2, mesh=make_mesh({"pts": 2}, devices=["cpu"] * 2))
     eng = BatchedSlamEngine(cfg, 2, "cpu")
     with pytest.raises(ValueError, match="lanes"):
         eng.push_scans([np.zeros((10, 3), np.float32)])

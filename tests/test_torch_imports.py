@@ -28,9 +28,11 @@ def test_port_never_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 24, names\n"
+        "assert len(names) >= 33, names\n"
         "for n in ('cli', '__main__', 'utils.io', 'utils.export', 'utils.checkpoint',"
-        " 'utils.native', 'ops.voxel', 'parallel', 'parallel.batched'):\n"
+        " 'utils.native', 'ops.voxel', 'parallel', 'parallel.batched',"
+        " 'parallel.mesh', 'parallel.sharded_knn', 'parallel.sharded_detect',"
+        " 'parallel.dryrun'):\n"
         "    assert p.__name__ + '.' + n in sys.modules, n\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('lidar_slam_tpu.') or m == 'lidar_slam_tpu']\n"
@@ -163,11 +165,12 @@ def test_run_batch_refuses_to_run_without_cuda_unless_cpu_is_asked(tmp_path):
 
 def test_batched_engine_default_device_is_the_card():
     """``BatchedSlamEngine(cfg, batch)`` (the JAX signature) targets CUDA:
-    without a card it raises; sharding over cards is not ported."""
+    without a card it raises; a mesh must be a port ``Mesh`` with the
+    ``seq`` axis the lanes spread over."""
     import torch
 
     from lidar_slam_tpu_torch.config import tiny_config
-    from lidar_slam_tpu_torch.parallel import BatchedSlamEngine
+    from lidar_slam_tpu_torch.parallel import BatchedSlamEngine, make_mesh
 
     cfg = tiny_config(max_frames=8)
     if torch.cuda.is_available():
@@ -178,14 +181,19 @@ def test_batched_engine_default_device_is_the_card():
     eng = BatchedSlamEngine(cfg, 2, "cpu")
     assert eng.state.poses.shape[:2] == (2, 8)
     assert eng.state.poses.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 1\b"):
+    with pytest.raises(TypeError, match="Mesh"):
         BatchedSlamEngine(cfg, 2, "cpu", mesh=object())
+    with pytest.raises(ValueError, match="'seq'"):
+        BatchedSlamEngine(cfg, 2, mesh=make_mesh({"pts": 2}, devices=["cpu"] * 2))
+    meshed = BatchedSlamEngine(
+        cfg, 2, mesh=make_mesh({"seq": 2, "pts": 1}, devices=["cpu"] * 2))
+    assert meshed.state.poses.shape[:2] == (2, 8)
 
 
 def test_unported_options_fail_by_name():
-    """What is still to port (sharding over several cards) raises and names
-    its ROADMAP item; every engine option now constructs, with the backend
-    and the estimator it names."""
+    """Nothing is left to port: a mesh that is not the port's ``Mesh`` is a
+    type error, and every engine option constructs, with the backend and
+    the estimator it names."""
     import torch
 
     from lidar_slam_tpu_torch.config import tiny_config
@@ -195,7 +203,7 @@ def test_unported_options_fail_by_name():
     from lidar_slam_tpu_torch.parallel import BatchedSlamEngine
 
     base = tiny_config(max_frames=8)
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 1\b"):
+    with pytest.raises(TypeError, match="Mesh"):
         BatchedSlamEngine(base, 2, "cpu", mesh=object())
     assert pipeline.resolve_nn1(base.replace(knn_backend="slab")) is nn1_slab
     assert hasattr(pipeline.resolve_nn1(base.replace(knn_backend="grid")),

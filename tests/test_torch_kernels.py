@@ -356,3 +356,27 @@ def test_normal_equations_round_the_same_for_any_lane_count(cuda):
         lanes = solve_point_to_plane(*(a[:B] for a in args))
         for b in range(B):
             _exact(lanes[b], solve_point_to_plane(*(a[b : b + 1] for a in args))[0])
+
+
+@pytest.mark.gpu
+def test_plane_error_rounds_the_same_for_any_lane_count(cuda):
+    """On the card, a lane's plane error (the ICP's convergence test) is
+    bit-identical alone and as one of 2 or 6 lanes at the odometry's 4,096
+    and full-density 32,768 rows: a row sum over a batch is split over
+    blocks by the batch's size, so ``ops/icp.py`` sums each lane alone."""
+    from lidar_slam_tpu_torch.ops.icp import _plane_error
+
+    rng = _gen(4)
+    for S in (4096, 32768):
+        cur = rng.normal(0, 20, (6, S, 3)).astype(np.float32)
+        matched = cur + rng.normal(0, 0.05, cur.shape).astype(np.float32)
+        nrm = rng.normal(size=cur.shape).astype(np.float32)
+        nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+        w = (rng.uniform(size=cur.shape[:2]) < 0.9).astype(np.float32)
+        args = [_dev(x, cuda) for x in (cur, matched, nrm, w)]
+        denom = args[3].sum(-1)
+        for B in (6, 2):
+            lanes = _plane_error(*(a[:B] for a in args), denom[:B])
+            for b in range(B):
+                _exact(lanes[b], _plane_error(*(a[b : b + 1] for a in args),
+                                              denom[b : b + 1])[0])

@@ -90,7 +90,15 @@ Phases, one line each (plus details):
    within 1e-5 m) and each lane alone through a batch of 1 (the same loops
    and ticks, poses within 1e-3 m); **batch-fidelity**: the same for
    ``--mode fidelity --no-host-voxelize`` on two raw 64-frame routes with a
-   revisit, rendered by two spawned processes from the start.
+   revisit, rendered by two spawned processes from the start;
+9. **pg-cg**, the pose graph's CG solver: ``SlamEngine`` in default mode
+   with ``PoseGraphConfig(solver="cg")`` on [batch-default]'s lane-0 scans
+   (200 frames, K2 odometry at 32,768^2), every optimize-on-find chunk and
+   the finalize ladder (float32 CG chunks, float64 Woodbury backstop) timed
+   by stage (``finalize(timing=)``), beside the Woodbury lane; then
+   ``optimize_chunked`` with ``relative_param=False`` on [engine]'s final
+   graph (500 poses, 4,608 capacity), beside the float64 Woodbury LM on the
+   same graph.
 
 Every phase counts each kernel's launches by launch shape (lanes x sources
 x targets, and K1's window); every launch must fall in a kernel row
@@ -639,8 +647,11 @@ def run_engine(scans, gt, dev):
     check(launches["match_slab"] > 0 and launches["nn1"] > 0,
           f"a kernel of the main path was not launched: {launches}")
     check(ate1 <= ate0 + 0.05, f"finalize made ATE worse: {ate0} -> {ate1}")
+    # the final graph (its factors and the finalized poses), for [pg-cg]
+    graph = eng.state.pg.replace(poses=eng.state.poses.clone())
     return dict(launches=launches, loops=m["loop_count"],
-                verify_fired=m["verify_fired"], ate=ate1, spy=shapes)
+                verify_fired=m["verify_fired"], ate=ate1, spy=shapes,
+                graph=graph, gt=gt)
 
 
 def launch_shape(name: str, args) -> str:
@@ -727,9 +738,9 @@ class RunSpy(KernelShapes):
         fin, opt = self._engine
         spy = self
 
-        def finalize(engine):
+        def finalize(engine, timing=None):
             spy.before = engine.trajectory()
-            res = fin(engine)
+            res = fin(engine, timing)
             spy.after, spy.metrics = engine.trajectory(), engine.metrics()
             return res
 
@@ -1798,7 +1809,7 @@ def run_dryrun(devs):
     return dict(launches=launches, spy=spy)
 
 
-def run_batch_mode(tag, mode, dirs, extra, work, devs, dev):
+def run_batch_mode(tag, mode, dirs, extra, work, devs, dev, keep=None):
     """``run-batch --mode <mode> --resident`` on two lanes, in this process;
     then ``BatchedSlamEngine(mesh=make_mesh({"seq": 2, "pts": 1}))`` on the
     prepared scans the command line handed its engine (the same loops,
@@ -1917,6 +1928,13 @@ def run_batch_mode(tag, mode, dirs, extra, work, devs, dev):
         f"{meshed['seconds']:.3f} s; loops {meshed['pairs']}, mid-run chunks "
         f"{meshed['chunks']}; largest pose difference from run-batch "
         f"{diff:.3e} m; launches {meshed['launches']}, by shape {mspy.shapes}")
+    if keep is not None:  # lane 0 for [pg-cg]: its scans, config and result
+        one = singles[0]
+        keep.update(seq=seqs[0], cfg=cfg, gt=gts[0], loops=one["pairs"][0],
+                    verify_fired=one["metrics"][0]["verify_fired"],
+                    chunks=one["chunks"], seconds=one["seconds"],
+                    ate_odo=ate_rmse(one["odo"][0], gts[0]),
+                    ate=ate_rmse(one["traj"][0], gts[0]))
     check(meshed["pairs"] == base["pairs"]
           and [x["verify_fired"] for x in meshed["metrics"]] == fired
           and meshed["chunks"] == base["chunks"],
@@ -1935,6 +1953,117 @@ def run_batch_mode(tag, mode, dirs, extra, work, devs, dev):
     return {tag: dict(launches=base["launches"], spy=spy),
             f"{tag}-mesh": dict(launches=meshed["launches"], spy=mspy),
             f"{tag}-singles": dict(launches=s_launch, spy=sspy)}
+
+
+def run_pg_cg(lane, engine, dev):
+    """[pg-cg]: the pose graph's CG solver on the card. (1) ``SlamEngine``
+    in default mode with ``PoseGraphConfig(solver="cg")`` over
+    [batch-default]'s lane-0 scans (200 frames, K2 odometry at 32,768^2):
+    every optimize-on-find chunk and the finalize (float32 CG chunks, then
+    the float64 Woodbury backstop if they do not converge) run the CG step;
+    printed beside the Woodbury lane of [batch-default] (a batch of 1).
+    Poses finite, a loop closed, ATE after finalize no worse than before +
+    0.05 m. (2) ``optimize_chunked`` with ``relative_param=False`` on
+    [engine]'s final graph (500 poses at their finalized values, 4,608
+    capacity), beside the float64 Woodbury LM on the same graph. (From
+    [engine]'s raw chain the absolute chunks do not stall and take minutes
+    of host-bound CG products: ``tools/bench_pg_cg.py``.)"""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lidar_slam_tpu_torch.config import slice_config
+    from lidar_slam_tpu_torch.models import pipeline
+    from lidar_slam_tpu_torch.models import pose_graph as pg
+    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = lane["cfg"].replace(pg=dataclasses.replace(lane["cfg"].pg, solver="cg"))
+    chunks = []
+    orig = pipeline.optimize_on_find
+
+    def spy(state, config):
+        t0 = time.perf_counter()
+        res = orig(state, config)
+        chunks.append((res, time.perf_counter() - t0))
+        return res
+
+    eng = pipeline.SlamEngine(cfg, dev)
+    eng.preload(lane["seq"])
+    torch.cuda.synchronize()
+    for k in knn_cuda.KERNELS:
+        k.launches = 0
+    pipeline.optimize_on_find = spy
+    try:
+        with KernelShapes() as shapes:
+            t0 = time.perf_counter()
+            eng.run_preloaded()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            odo = eng.trajectory()
+            timing = {}
+            res = eng.finalize(timing=timing)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    finally:
+        pipeline.optimize_on_find = orig
+    launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+    traj, m, gt = eng.trajectory(), eng.metrics(), lane["gt"]
+    ate0, ate1 = ate_rmse(odo, gt), ate_rmse(traj, gt)
+    lm = sum(r.iterations for r, _ in chunks)
+    mv = sum(r.cg_matvecs for r, _ in chunks)
+    log(f"[pg-cg] SlamEngine, default mode, solver cg: {len(odo)} frames, "
+        f"run_preloaded {t1 - t0:.3f} s, finalize {t2 - t1:.3f} s; loops "
+        f"{eng.loop_pairs()}, verify_fired {m['verify_fired']}, mid-run "
+        f"chunks {len(chunks)} ({lm} LM iterations, {mv} CG matvecs, "
+        f"{sum(t for _, t in chunks):.3f} s, converged "
+        f"{[r.converged for r, _ in chunks]}); ATE {ate0:.4f} m before "
+        f"finalize, {ate1:.4f} after; finalize {res.iterations} LM "
+        f"iterations, {res.cg_matvecs} CG matvecs, converged {res.converged}, "
+        f"error {res.final_error:.6f}; timing "
+        + json.dumps({k: round(v, 6) for k, v in timing.items()})
+        + f"; launches {launches}, by shape {shapes.shapes}")
+    log(f"[pg-cg] beside the Woodbury lane ([batch-default], lane 0 as a batch "
+        f"of 1, whose mid-run chunk is gated and over the whole graph): loops "
+        f"{lane['loops']}, verify_fired {lane['verify_fired']}, mid-run chunks "
+        f"{lane['chunks']}, ATE {lane['ate_odo']:.4f} m before finalize, "
+        f"{lane['ate']:.4f} after, {lane['seconds']:.3f} s")
+    check(bool(np.isfinite(traj).all()), "[pg-cg] non-finite poses")
+    check(m["loop_count"] >= 1, "[pg-cg] no loop closed")
+    check(launches["nn1"] > 0, f"[pg-cg] K2 was not launched: {launches}")
+    check(mv + res.cg_matvecs > 0, "[pg-cg] the CG solver never ran")
+    check(ate1 <= ate0 + 0.05, f"[pg-cg] finalize made ATE worse: {ate0} -> {ate1}")
+    del eng
+
+    graph = engine["graph"]
+    n = graph.n_poses
+    pcfg = slice_config().pg
+    t0 = time.perf_counter()
+    wood = pg.optimize(pg.compact_loops(graph).to(torch.float64), pcfg)
+    t_wood = time.perf_counter() - t0
+    acfg = dataclasses.replace(pcfg, relative_param=False)
+    tim = {}
+    t0 = time.perf_counter()
+    res = pg.optimize_chunked(graph, acfg, chunk=acfg.inline_max_iterations,
+                              timing=tim)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    poses = res.poses[:n].cpu().numpy()
+    log(f"[pg-cg] optimize_chunked, relative_param=False, on [engine]'s final "
+        f"graph ({n} poses at their finalized values, {graph.poses.shape[0]} "
+        f"capacity, {graph.n_loops} loops): {t1 - t0:.3f} s; float32 chunks "
+        f"{tim['f32_it']} LM iterations ({res.cg_matvecs} CG matvecs, "
+        f"{tim['f32_s']:.3f} s); backstop "
+        + (f"ran, {tim['f64_it']} iterations, {tim['f64_s']:.3f} s"
+           if "f64_it" in tim else "did not run")
+        + f"; converged {res.converged}, error {res.final_error:.6f}, ATE "
+        f"{ate_rmse(poses, engine['gt']):.4f} m; the float64 Woodbury LM on "
+        f"the same graph: {wood.iterations} iterations, {t_wood:.3f} s, "
+        f"error {wood.final_error:.6f}, ATE {engine['ate']:.4f} m")
+    check(bool(np.isfinite(poses).all()), "[pg-cg] optimize_chunked gave "
+          "non-finite poses")
+    return dict(launches=launches, spy=shapes)
 
 
 def missing_k2_rows(results, runs, rates) -> list:
@@ -2050,10 +2179,13 @@ def main() -> int:
         sharded = run_sharded_dense(dense, dense_gt, devs, dev)
         del dense
         dry = run_dryrun(devs)
+        lane0 = {}
         modes = run_batch_mode(
             "batch-default", "default",
             [os.path.join(work, f"lane{b}") for b in range(2)], [], work,
-            devs, dev)
+            devs, dev, keep=lane0)
+        modes["pg-cg"] = run_pg_cg(lane0, engine, dev)
+        del lane0
         for f in fid_jobs:
             f.result()
         modes.update(run_batch_mode("batch-fidelity", "fidelity", fid_dirs,

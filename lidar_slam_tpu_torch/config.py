@@ -73,8 +73,14 @@ class LoopClosureConfig:
 class PoseGraphConfig:
     """SE(3) pose-graph LM settings (reference pose_graph.hpp:22-40).
 
-    The port runs the Woodbury LM only; ``solver``, ``dd_solve`` and the CG
-    knobs are kept so configs translate one to one."""
+    ``solver``, ``relative_param``, ``cg_iterations`` and ``cg_tolerance``
+    act as in the JAX package: ``relative_param`` with ``solver="woodbury"``
+    runs the exact Woodbury step, anything else the matrix-free CG step
+    (``cg_iterations`` budget, ``cg_tolerance`` relative to |b|^2), in the
+    relative or the absolute parameterisation. ``dd_solve`` picks the K-solve
+    of the JAX package's emulated-f64 tier, which the port replaces with
+    native float64: it is accepted so configs translate one to one, and
+    unused."""
 
     odom_rotation_sigma: float = 0.01
     odom_translation_sigma: float = 0.05

@@ -1,18 +1,25 @@
 """SE(3) pose-graph Levenberg-Marquardt (port of
-``lidar_slam_tpu/models/pose_graph.py``, Woodbury path).
+``lidar_slam_tpu/models/pose_graph.py``).
 
 Same factor graph (reference pose_graph.cpp:6-171): a prior on pose 0,
 odometry BetweenFactors with sigmas scaled by 1 + 10 * fitness, loop
 BetweenFactors; GTSAM's LM schedule and error convention. The damped
-Gauss-Newton step is the exact Woodbury solve in the relative
-parameterisation (diagonal + rank-6L normal matrix: one prefix sum over
-frames and one 6L x 6L Cholesky).
+Gauss-Newton step is, as in the JAX package, one of two inner solvers:
 
-:func:`optimize` is dtype-generic. Finalize runs it in float64 on the
-device, which replaces the JAX package's f32 -> emulated-f64 -> NumPy-f64
-ladder (``optimize_chunked``): the H100 has native float64. Pose chains are
-rebuilt by a log-depth doubling prefix product of batched 4x4 matmuls (the
-JAX ``lax.associative_scan``).
+- ``relative_param=True, solver="woodbury"`` (the default): the exact
+  Woodbury solve in the relative parameterisation (diagonal + rank-6L normal
+  matrix: one prefix sum over frames and one 6L x 6L Cholesky);
+- any other configuration: matrix-free conjugate gradient on
+  (J^T J + lam I) d = -J^T r, with J^T y and J x by ``torch.func`` autodiff
+  of the residual function (:func:`_normal_equations`), in the relative or
+  the absolute (right-retraction) parameterisation.
+
+:func:`optimize` is dtype-generic. Finalize runs the default config's LM in
+float64 on the device; other configs run :func:`optimize_chunked`, float32
+chunks of the configured solver with a float64 Woodbury backstop. Native
+float64 on the card replaces the JAX package's emulated-f64 and NumPy-f64
+tiers. Pose chains are rebuilt by a log-depth doubling prefix product of
+batched 4x4 matmuls (the JAX ``lax.associative_scan``).
 
 Factors are written IN PLACE; ``n_poses``, ``n_loops`` and
 ``n_loops_dropped`` are host integers.
@@ -21,6 +28,7 @@ Factors are written IN PLACE; ``n_poses``, ``n_loops`` and
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 
 import torch
@@ -299,12 +307,85 @@ def _woodbury_solve(state: PoseGraphState, cfg: PoseGraphConfig, lam: float,
     return y1 - Dinv * B(alpha), int(info) == 0
 
 
+def _cg_solve(matvec, b: torch.Tensor, iters: int, tol: float) -> torch.Tensor:
+    """Conjugate gradient on the damped normal equations (matrix-free), the
+    JAX package's ``_cg_solve`` step for step: x0 = 0, stop at the first
+    iteration whose squared residual is at most ``tol`` times |b|^2 (floored
+    at 1e-30), or after ``iters`` iterations. The stop test reads the
+    residual on the host once per iteration."""
+    x = torch.zeros_like(b)
+    r = b
+    p = r
+    rs = torch.sum(r * r)
+    tol = tol * torch.clamp(rs, min=1e-30)
+    i = 0
+    while i < iters and bool(rs > tol):
+        Ap = matvec(p)
+        alpha = rs / torch.clamp(torch.sum(p * Ap), min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rs_new = torch.sum(r * r)
+        p = r + (rs_new / torch.clamp(rs, min=1e-30)) * p
+        rs = rs_new
+        i += 1
+    return x
+
+
+def _retract(state: PoseGraphState, d: torch.Tensor,
+             cfg: PoseGraphConfig) -> torch.Tensor:
+    """Poses after the step ``d``: through the relative chain, or by right
+    retraction T_k Exp(d_k) in the absolute parameterisation."""
+    if cfg.relative_param:
+        return _poses_from_rel_deltas(state, d)
+    return se3.compose(state.poses, se3.exp(d))
+
+
+def _normal_equations(state: PoseGraphState, cfg: PoseGraphConfig, lam: float):
+    """``(g, matvec)`` of the damped normal equations linearized at d = 0:
+    g = J^T r0 and matvec(x) = J^T J x + lam x, by autodiff (J is never
+    formed). ``torch.func.vjp`` of the residuals gives J^T y, and J x is
+    the vjp of that linear map (its transpose). ``torch.func.linearize``
+    would give J x too, but its ``make_fx`` trace costs seconds per LM
+    iteration, and ``torch.func.jvp`` stops on the 0-dim coefficients of
+    the unbatched ``se3.exp``."""
+    rel = cfg.relative_param
+
+    def rfun(d):
+        return _residuals_rel(state, d, cfg) if rel else _residuals(state, d, cfg)
+
+    zero = torch.zeros((state.poses.shape[0], 6), dtype=state.poses.dtype,
+                       device=state.poses.device)
+    r0, vjp = torch.func.vjp(rfun, zero)
+    g, jvp = torch.func.vjp(lambda y: vjp(y)[0], r0)
+
+    def matvec(x):
+        (jt,) = vjp(jvp(x)[0])
+        return jt + lam * x
+
+    return g, matvec
+
+
+def _cg_step(state: PoseGraphState, cfg: PoseGraphConfig, lam: float):
+    """The damped Gauss-Newton step by CG: ``(delta (F, 6), matvecs)``."""
+    g, matvec = _normal_equations(state, cfg, lam)
+    calls = 0
+
+    def counted(x):
+        nonlocal calls
+        calls += 1
+        return matvec(x)
+
+    delta = _cg_solve(counted, -g, cfg.cg_iterations, cfg.cg_tolerance)
+    return delta, calls
+
+
 @dataclass
 class OptimizeResult:
     poses: torch.Tensor
     final_error: float
     iterations: int
     converged: bool
+    cg_matvecs: int = 0    # J^T J products the CG steps made (0: Woodbury)
 
 
 def graph_error(state: PoseGraphState, cfg: PoseGraphConfig) -> float:
@@ -318,7 +399,8 @@ def graph_error(state: PoseGraphState, cfg: PoseGraphConfig) -> float:
 def optimize(state: PoseGraphState, cfg: PoseGraphConfig = PoseGraphConfig(),
              max_iterations: int | None = None) -> OptimizeResult:
     """Levenberg-Marquardt over the whole graph in ``state.poses``' dtype:
-    Woodbury step, retract through the relative chain, Gram-Schmidt
+    damped Gauss-Newton step (Woodbury for ``relative_param`` with
+    ``solver="woodbury"``, CG otherwise), retract, Gram-Schmidt
     re-orthonormalisation, accept on the true cost with GTSAM's lambda
     schedule, stop on the relative/absolute error tolerance.
 
@@ -327,18 +409,25 @@ def optimize(state: PoseGraphState, cfg: PoseGraphConfig = PoseGraphConfig(),
     reports ``converged=False`` (optimize-on-find keeps the graph pending
     then)."""
     max_it = cfg.max_iterations if max_iterations is None else max_iterations
+    woodbury = cfg.relative_param and cfg.solver == "woodbury"
     poses = state.poses
     cost = graph_error(state, cfg)
     lam = cfg.lambda_init
-    it = 0
+    it = matvecs = 0
     done = False
     while it < max_it and not done and lam <= cfg.lambda_max:
         st = state.replace(poses=poses)
-        zero = torch.zeros((poses.shape[0], 6), dtype=poses.dtype,
-                           device=poses.device)
-        r0 = _residuals_rel(st, zero, cfg)
-        delta, ok = _woodbury_solve(st, cfg, lam, r0)
-        new_poses = se3.orthonormalize(_poses_from_rel_deltas(st, delta))
+        if woodbury:
+            zero = torch.zeros((poses.shape[0], 6), dtype=poses.dtype,
+                               device=poses.device)
+            r0 = _residuals_rel(st, zero, cfg)
+            delta, ok = _woodbury_solve(st, cfg, lam, r0)
+        else:
+            # no solver-failure flag: a NaN cost fails the comparison below
+            delta, calls = _cg_step(st, cfg, lam)
+            matvecs += calls
+            ok = True
+        new_poses = se3.orthonormalize(_retract(st, delta, cfg))
         new_cost = graph_error(state.replace(poses=new_poses), cfg)
         if ok and new_cost < cost:
             decrease = cost - new_cost
@@ -350,4 +439,54 @@ def optimize(state: PoseGraphState, cfg: PoseGraphConfig = PoseGraphConfig(),
             lam = lam * cfg.lambda_factor
         it += 1
     return OptimizeResult(poses=poses, final_error=cost, iterations=it,
-                          converged=done)
+                          converged=done, cg_matvecs=matvecs)
+
+
+def optimize_chunked(state: PoseGraphState,
+                     cfg: PoseGraphConfig = PoseGraphConfig(), chunk: int = 10,
+                     timing: dict | None = None) -> OptimizeResult:
+    """LM to convergence as the JAX package's ``optimize_chunked`` drives it,
+    without its emulated-f64 tier: float32 chunks of ``chunk`` iterations of
+    the configured solver, each warm-started from the last chunk's poses at
+    ``lambda_init``, stopped when a chunk converges, runs short, or lowers
+    the cost by less than 1%; then, if still unconverged, the float64
+    Woodbury LM from the chunks' poses (the JAX package's NumPy-f64
+    ``optimize_host``), kept only if its error is lower. Iterations and CG
+    matvecs are counted across both stages; the poses come back in float32.
+
+    ``timing``: optional dict filled with each stage's wall seconds and
+    iterations, ``f32_s``/``f32_it`` and ``f64_s``/``f64_it`` (every LM
+    iteration reads its cost on the host, so a stage's work is done when its
+    clock stops)."""
+    t0 = time.perf_counter()
+    state = compact_loops(state).to(torch.float32)
+    res = None
+    total_it = matvecs = 0
+    prev_err = float("inf")
+    for _ in range(-(-cfg.max_iterations // chunk)):
+        st = state if res is None else state.replace(poses=res.poses)
+        res = optimize(st, cfg, max_iterations=chunk)
+        total_it += res.iterations
+        matvecs += res.cg_matvecs
+        if res.converged or res.iterations < chunk:
+            break
+        if res.final_error > prev_err * 0.99:
+            break  # a whole chunk moved the cost < 1%: float32 has stalled
+        prev_err = res.final_error
+    if timing is not None:
+        timing["f32_s"] = time.perf_counter() - t0
+        timing["f32_it"] = total_it
+        t0 = time.perf_counter()
+    if not res.converged:
+        f64 = optimize(
+            state.replace(poses=res.poses).to(torch.float64),
+            dataclasses.replace(cfg, solver="woodbury", relative_param=True),
+            max_iterations=cfg.max_iterations,
+        )
+        total_it += f64.iterations
+        if f64.final_error < res.final_error:
+            res = dataclasses.replace(f64, poses=f64.poses.to(torch.float32))
+        if timing is not None:
+            timing["f64_s"] = time.perf_counter() - t0
+            timing["f64_it"] = f64.iterations
+    return dataclasses.replace(res, iterations=total_it, cg_matvecs=matvecs)

@@ -22,8 +22,10 @@ batch costs less than a loop:
 Loops over lanes remain where a batch would not save work: the normals (their
 slab sweeps are cut into chunks of 2^26 distance evaluations, so B lanes run
 B times the chunks either way), the device voxelizer of raw scans, the
-mid-run pose-graph chunk and finalize (one float64 LM per lane, then the
-occupancy rebuild, as ``SlamEngine.finalize``).
+mid-run pose-graph chunk and finalize (each lane's LM to convergence, then
+the occupancy rebuild, as ``SlamEngine.finalize``: one float64 Woodbury LM
+for the default config, the float32 chunks and float64 backstop of
+``pose_graph.optimize_chunked`` for any other solver).
 
 Semantics follow the JAX batched engine, which differ from the single
 engine's in two places (ROADMAP.md, Queue 3): the mid-run optimize is gated
@@ -33,7 +35,8 @@ every tick) and optimizes the whole graph (no ``window_loops``); with
 equal the single engine. As in the JAX batched engine, scans carry no host
 normals: the normals are always estimated on the device. Each cadence tick
 runs right after its frame; the JAX engine's dispatch blocks, multi-tick
-bunching and f32 finalize ladder exist for the TPU and are not ported.
+bunching and emulated-f64 finalize tier exist for the TPU and are not
+ported.
 """
 
 from __future__ import annotations
@@ -189,7 +192,8 @@ def make_batched_fns(config: SlamConfig, optimize_midrun: bool = True):
     mid-run optimize unless ``optimize_midrun`` is off), ``optimize(state)``
     (one :func:`optimize_chunk` on every lane, which sets its
     ``pending_optimize``) and ``finalize(state) -> results`` (each lane's
-    float64 LM to convergence and occupancy rebuild). Placing lanes on a
+    ``pipeline.finalize_state``: the LM to convergence and the occupancy
+    rebuild). Placing lanes on a
     mesh is ``BatchedSlamEngine(mesh=)``'s part: it runs these on each
     group."""
     nn1 = pipe.resolve_nn1(config)
@@ -418,9 +422,9 @@ class BatchedSlamEngine:
         so that callers of either engine read the same."""
 
     def finalize(self) -> list:
-        """Per lane: the float64 pose-graph LM to convergence, then the
-        occupancy rebuild (``SlamEngine.finalize``). Returns each lane's
-        optimize result."""
+        """Per lane: the pose-graph LM to convergence, then the occupancy
+        rebuild (``pipeline.finalize_state``, as ``SlamEngine.finalize``).
+        Returns each lane's optimize result."""
         return [res for state in self._states for res in self._finalize(state)]
 
     # -- results -----------------------------------------------------------

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -204,6 +205,9 @@ def cmd_run(args) -> int:
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
         prof.start()
+        # profiler clock ns = perf_counter ns + offset (the engine's spans
+        # are on perf_counter)
+        clock_offset_ns = time.time_ns() - time.perf_counter_ns()
 
     if args.warmup_run and start_frame:
         print("--warmup-run ignored with --resume (reset would discard "
@@ -320,6 +324,12 @@ def cmd_run(args) -> int:
         trace = os.path.join(args.profile, "trace.json")
         prof.export_chrome_trace(trace)
         print(f"profiler trace -> {trace}")
+        # the engine traced itself while the profiler ran (utils/tracing.py)
+        spans = os.path.join(args.profile, "spans.json")
+        with open(spans, "w") as f:
+            json.dump(dict(clock_offset_ns=clock_offset_ns,
+                           **engine.metrics().get("trace", {})), f)
+        print(f"program spans -> {spans}")
     wall = time.perf_counter() - t_start
     wall -= t_warm  # the untimed --warmup-run pass (0.0 without it)
     sps = n_run / wall
@@ -398,8 +408,6 @@ def cmd_run_batch(args) -> int:
     same modes, host-voxelize prep in loader workers, ``--resident`` with
     ``--warmup-run``, per-lane ATE and trajectories, as ``lidar_slam_tpu
     run-batch``. Lanes are cut to the shortest sequence."""
-    import json
-
     import numpy as np
 
     from .config import SlamConfig, apply_mode
@@ -667,7 +675,8 @@ def main(argv=None) -> int:
     r.add_argument("--resume", default="",
                    help="resume from a checkpoint.npz (same config required)")
     r.add_argument("--profile", default="",
-                   help="write a torch.profiler trace (trace.json) to this "
+                   help="write a torch.profiler trace (trace.json) and the "
+                   "engine's own spans and counters (spans.json) to this "
                    "directory")
     r.add_argument("--debug-nans", action="store_true",
                    help="check every new pose and ICP error for finiteness "

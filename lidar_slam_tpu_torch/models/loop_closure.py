@@ -39,6 +39,7 @@ from ..ops.scan_context import (
     shift_to_yaw,
 )
 from ..types import PointCloud, strided_prefix_idx
+from ..utils import tracing
 
 
 @dataclass
@@ -196,179 +197,189 @@ def detect_lanes(
     f32 = dict(dtype=torch.float32, device=device)
     inf = float("inf")
 
-    # stage 1, one retrieval per lane
-    q_safe = [max(int(q), 0) for q in queries]
-    idx_l, dist_l, shift_l, nval_l = [], [], [], []
-    for b, q in enumerate(queries):
-        qs = q_safe[b]
-        if cfg.ring_key_prefilter > 0:
-            dist, best_shift = sc_distances_ring_prefiltered(
-                db.desc[b, qs], db.desc[b], db.desc_norm[b],
-                k=min(cfg.ring_key_prefilter, F),
+    with tracing.span("retrieve"):
+        # stage 1, one retrieval per lane
+        q_safe = [max(int(q), 0) for q in queries]
+        idx_l, dist_l, shift_l, nval_l = [], [], [], []
+        for b, q in enumerate(queries):
+            qs = q_safe[b]
+            if cfg.ring_key_prefilter > 0:
+                dist, best_shift = sc_distances_ring_prefiltered(
+                    db.desc[b, qs], db.desc[b], db.desc_norm[b],
+                    k=min(cfg.ring_key_prefilter, F),
+                )
+            else:
+                dist, best_shift = sc_distances(db.desc[b, qs], db.desc[b],
+                                                db.desc_norm[b])
+            cand_ok = (
+                db.in_db[b]
+                & (frames < qs)
+                & ((qs - frames) >= cfg.frame_gap)
+                & (dist < cfg.sc_distance_threshold)
             )
+            if q < 0 or (explicit and not tracing.host_read("detect.in_db",
+                                                           db.in_db[b, qs])):
+                cand_ok = torch.zeros_like(cand_ok)
+            masked = torch.where(cand_ok, dist, torch.full_like(dist, inf))
+            order = torch.sort(masked, stable=True).indices
+            idx_l.append(order[:M])
+            dist_l.append(masked[order[:M]])
+            shift_l.append(best_shift[order[:M]])
+            nval_l.append(cand_ok.sum())
+        cand_idx = torch.stack(idx_l)                      # (B, M)
+        cand_dist = torch.stack(dist_l)
+        cand_valid = torch.isfinite(cand_dist)
+        valid_h = tracing.host_read("detect.valid", cand_valid, tracing.as_list)
+        n_valid = tracing.host_read("detect.n_valid", torch.stack(nval_l),
+                                    tracing.as_list)
+
+    with tracing.span("verify"):
+        lane = torch.arange(B, device=device)
+        qt = torch.tensor(q_safe, device=device)
+        query_pts, query_mask = db.clouds[lane, qt], db.cloud_mask[lane, qt]
+        cand_clouds = db.clouds[lane[:, None], cand_idx]      # (B, M, N, 3)
+        cand_masks = db.cloud_mask[lane[:, None], cand_idx]   # (B, M, N)
+        cand_normals = db.normals[lane[:, None], cand_idx]    # (B, M, N, 3)
+        N = db.clouds.shape[2]
+
+        vc = cfg.verify_coarse_iterations
+        do_coarse = vc > 0 and cfg.verify_coarse_sample < N
+        icp_cfg = ICPConfig(
+            max_iterations=cfg.icp_max_iterations,
+            tolerance=cfg.verify_tolerance,
+            sample_points=cfg.verify_sample,
+            coarse_iterations=0,
+            coarse_sample=cfg.verify_coarse_sample,
+        )
+
+        if cfg.yaw_seed:
+            yaw = shift_to_yaw(torch.stack(shift_l), sc_cfg.num_sectors)
+            zeros = torch.zeros_like(yaw)
+            w = torch.stack([zeros, zeros, yaw], dim=-1)
+            init_T = se3.from_rt(se3.exp_so3(w), torch.zeros((B, M, 3), **f32))
         else:
-            dist, best_shift = sc_distances(db.desc[b, qs], db.desc[b],
-                                            db.desc_norm[b])
-        cand_ok = (
-            db.in_db[b]
-            & (frames < qs)
-            & ((qs - frames) >= cfg.frame_gap)
-            & (dist < cfg.sc_distance_threshold)
-        )
-        if q < 0 or (explicit and not bool(db.in_db[b, qs])):
-            cand_ok = torch.zeros_like(cand_ok)
-        masked = torch.where(cand_ok, dist, torch.full_like(dist, inf))
-        order = torch.sort(masked, stable=True).indices
-        idx_l.append(order[:M])
-        dist_l.append(masked[order[:M]])
-        shift_l.append(best_shift[order[:M]])
-        nval_l.append(cand_ok.sum())
-    cand_idx = torch.stack(idx_l)                      # (B, M)
-    cand_dist = torch.stack(dist_l)
-    cand_valid = torch.isfinite(cand_dist)
-    valid_h = cand_valid.cpu().tolist()
-    n_valid = torch.stack(nval_l).cpu().tolist()
+            init_T = torch.eye(4, **f32).expand(B, M, 4, 4)
 
-    lane = torch.arange(B, device=device)
-    qt = torch.tensor(q_safe, device=device)
-    query_pts, query_mask = db.clouds[lane, qt], db.cloud_mask[lane, qt]
-    cand_clouds = db.clouds[lane[:, None], cand_idx]      # (B, M, N, 3)
-    cand_masks = db.cloud_mask[lane[:, None], cand_idx]   # (B, M, N)
-    cand_normals = db.normals[lane[:, None], cand_idx]    # (B, M, N, 3)
-    N = db.clouds.shape[2]
+        def rep(x):
+            """Per lane -> per (lane, candidate) of a tranche."""
+            return x.repeat_interleave(K, dim=0)
 
-    vc = cfg.verify_coarse_iterations
-    do_coarse = vc > 0 and cfg.verify_coarse_sample < N
-    icp_cfg = ICPConfig(
-        max_iterations=cfg.icp_max_iterations,
-        tolerance=cfg.verify_tolerance,
-        sample_points=cfg.verify_sample,
-        coarse_iterations=0,
-        coarse_sample=cfg.verify_coarse_sample,
-    )
+        if do_coarse:
+            q_disp = torch.where(query_mask[..., None], query_pts,
+                                 torch.full_like(query_pts, 1.0e6))
+            csrc = PointCloud(q_disp, query_mask).subsample(
+                cfg.verify_coarse_sample
+            )
+            cw = csrc.mask.to(torch.float32)
+            cdenom = torch.clamp(torch.sum(cw, dim=-1), min=1.0)
+            c_pts, c_mask, c_w, c_denom = (rep(x) for x in
+                                           (csrc.points, csrc.mask, cw, cdenom))
 
-    if cfg.yaw_seed:
-        yaw = shift_to_yaw(torch.stack(shift_l), sc_cfg.num_sectors)
-        zeros = torch.zeros_like(yaw)
-        w = torch.stack([zeros, zeros, yaw], dim=-1)
-        init_T = se3.from_rt(se3.exp_so3(w), torch.zeros((B, M, 3), **f32))
-    else:
-        init_T = torch.eye(4, **f32).expand(B, M, 4, 4)
+        def coarse_phase(cl, mk, nr, T):
+            """The ICP coarse warm start on the tranche's lanes, plus each
+            lane's coarse-sample plane RMS at the resulting transform."""
 
-    def rep(x):
-        """Per lane -> per (lane, candidate) of a tranche."""
-        return x.repeat_interleave(K, dim=0)
+            def match(cur):
+                idx, _ = nn1_fn(cur, cl, mk)
+                return _gather_rows(cl, idx), _gather_rows(nr, idx)
 
-    if do_coarse:
-        q_disp = torch.where(query_mask[..., None], query_pts,
-                             torch.full_like(query_pts, 1.0e6))
-        csrc = PointCloud(q_disp, query_mask).subsample(
-            cfg.verify_coarse_sample
-        )
-        cw = csrc.mask.to(torch.float32)
-        cdenom = torch.clamp(torch.sum(cw, dim=-1), min=1.0)
-        c_pts, c_mask, c_w, c_denom = (rep(x) for x in
-                                       (csrc.points, csrc.mask, cw, cdenom))
-
-    def coarse_phase(cl, mk, nr, T):
-        """The ICP coarse warm start on the tranche's lanes, plus each
-        lane's coarse-sample plane RMS at the resulting transform."""
-
-        def match(cur):
-            idx, _ = nn1_fn(cur, cl, mk)
-            return _gather_rows(cl, idx), _gather_rows(nr, idx)
-
-        for _ in range(vc):
+            for _ in range(vc):
+                cur = se3.apply(T, c_pts)
+                matched, nrm = match(cur)
+                delta = solve_point_to_plane(cur, matched, nrm, c_mask,
+                                             icp_cfg.solver_damping)
+                T = lane_compose(delta, T)
             cur = se3.apply(T, c_pts)
             matched, nrm = match(cur)
-            delta = solve_point_to_plane(cur, matched, nrm, c_mask,
-                                         icp_cfg.solver_damping)
-            T = lane_compose(delta, T)
-        cur = se3.apply(T, c_pts)
-        matched, nrm = match(cur)
-        return T, _plane_error(cur, matched, nrm, c_w, c_denom)
+            return T, _plane_error(cur, matched, nrm, c_w, c_denom)
 
-    def verify(cl, mk, nr, T0, skip):
-        res = icp_point_to_plane(
-            PointCloud(rep(query_pts), rep(query_mask)), PointCloud(cl, mk),
-            nr, icp_cfg, T0, nn1_fn=nn1_fn, inactive=skip,
-        )
-        return res.transformation, res.converged, res.final_error
+        def verify(cl, mk, nr, T0, skip):
+            res = icp_point_to_plane(
+                PointCloud(rep(query_pts), rep(query_mask)), PointCloud(cl, mk),
+                nr, icp_cfg, T0, nn1_fn=nn1_fn, inactive=skip,
+            )
+            return res.transformation, res.converged, res.final_error
 
-    reject = cfg.verify_coarse_reject if do_coarse else 0.0
-    eye = torch.eye(4, **f32)
+        reject = cfg.verify_coarse_reject if do_coarse else 0.0
+        eye = torch.eye(4, **f32)
 
-    def tranche(sl, gate):
-        """Tranche ``[sl, sl + K)`` of every lane whose ``gate`` is open:
-        ``(tf, conv, fit, cerr)`` as (B, K, ...) and each lane's fine
-        gate."""
-        g = torch.tensor(gate, device=device)
-        if not any(gate):
-            return (eye.expand(B, K, 4, 4),
-                    torch.zeros((B, K), dtype=torch.bool, device=device),
-                    torch.full((B, K), inf, **f32),
-                    torch.full((B, K), inf, **f32), [False] * B)
-        cl, mk, nr, T0, valid = (
-            x[:, sl : sl + K].reshape(B * K, *x.shape[2:])
-            for x in (cand_clouds, cand_masks, cand_normals, init_T, cand_valid)
-        )
-        gk = rep(g)
-        if not do_coarse:
-            tf, conv, fit = verify(cl, mk, nr, T0, ~valid | ~gk)
-            cerr = torch.full((B * K,), inf, **f32)
-            fine = list(gate)
-        else:
-            Tc, cerr = coarse_phase(cl, mk, nr, T0)
-            if reject > 0:
-                hopeless = cerr > reject
+        def tranche(sl, gate):
+            """Tranche ``[sl, sl + K)`` of every lane whose ``gate`` is open:
+            ``(tf, conv, fit, cerr)`` as (B, K, ...) and each lane's fine
+            gate."""
+            with tracing.span("tranche"):
+                return _tranche(sl, gate)
+
+        def _tranche(sl, gate):
+            g = torch.tensor(gate, device=device)
+            if not any(gate):
+                return (eye.expand(B, K, 4, 4),
+                        torch.zeros((B, K), dtype=torch.bool, device=device),
+                        torch.full((B, K), inf, **f32),
+                        torch.full((B, K), inf, **f32), [False] * B)
+            cl, mk, nr, T0, valid = (
+                x[:, sl : sl + K].reshape(B * K, *x.shape[2:])
+                for x in (cand_clouds, cand_masks, cand_normals, init_T, cand_valid)
+            )
+            gk = rep(g)
+            if not do_coarse:
+                tf, conv, fit = verify(cl, mk, nr, T0, ~valid | ~gk)
+                cerr = torch.full((B * K,), inf, **f32)
+                fine = list(gate)
             else:
-                hopeless = torch.zeros((B * K,), dtype=torch.bool, device=device)
-            inact = ~valid | hopeless
-            fine_t = (~inact).reshape(B, K).any(dim=-1) & g
-            fine = fine_t.cpu().tolist()
-            if any(fine):
-                tf, conv, fit = verify(cl, mk, nr, Tc, inact | ~rep(fine_t))
-                fk = rep(fine_t)
-                tf = torch.where(fk[:, None, None], tf, Tc)
-                conv = conv & fk
-                fit = torch.where(fk, fit, torch.full_like(fit, inf))
-            else:
-                tf = Tc
-                conv = torch.zeros((B * K,), dtype=torch.bool, device=device)
-                fit = torch.full((B * K,), inf, **f32)
-            conv = conv & ~hopeless
-            fit = torch.where(hopeless, torch.full_like(fit, inf), fit)
-        # lanes whose tranche did not run keep the values of a skipped one
-        tf = torch.where(gk[:, None, None], tf, eye)
-        conv = conv & gk
-        fit = torch.where(gk, fit, torch.full_like(fit, inf))
-        cerr = torch.where(gk, cerr, torch.full_like(cerr, inf))
-        return (tf.reshape(B, K, 4, 4), conv.reshape(B, K), fit.reshape(B, K),
-                cerr.reshape(B, K), fine)
+                Tc, cerr = coarse_phase(cl, mk, nr, T0)
+                if reject > 0:
+                    hopeless = cerr > reject
+                else:
+                    hopeless = torch.zeros((B * K,), dtype=torch.bool, device=device)
+                inact = ~valid | hopeless
+                fine_t = (~inact).reshape(B, K).any(dim=-1) & g
+                fine = tracing.host_read("detect.fine", fine_t, tracing.as_list)
+                if any(fine):
+                    tf, conv, fit = verify(cl, mk, nr, Tc, inact | ~rep(fine_t))
+                    fk = rep(fine_t)
+                    tf = torch.where(fk[:, None, None], tf, Tc)
+                    conv = conv & fk
+                    fit = torch.where(fk, fit, torch.full_like(fit, inf))
+                else:
+                    tf = Tc
+                    conv = torch.zeros((B * K,), dtype=torch.bool, device=device)
+                    fit = torch.full((B * K,), inf, **f32)
+                conv = conv & ~hopeless
+                fit = torch.where(hopeless, torch.full_like(fit, inf), fit)
+            # lanes whose tranche did not run keep the values of a skipped one
+            tf = torch.where(gk[:, None, None], tf, eye)
+            conv = conv & gk
+            fit = torch.where(gk, fit, torch.full_like(fit, inf))
+            cerr = torch.where(gk, cerr, torch.full_like(cerr, inf))
+            return (tf.reshape(B, K, 4, 4), conv.reshape(B, K), fit.reshape(B, K),
+                    cerr.reshape(B, K), fine)
 
-    thr = cfg.icp_fitness_threshold
-    tf, conv, fit, cerr, fine_any = tranche(0, [any(v[:K]) for v in valid_h])
-    tfs, convs, fits, cerrs = [tf], [conv], [fit], [cerr]
-    if NT > 1:
-        acc0 = cand_valid[:, :K] & conv & (fit < thr)
-        n_acc = acc0.sum(dim=-1).cpu().tolist()
-    for t in range(1, NT):
-        sl = t * K
-        gate = [n_acc[b] < K and any(valid_h[b][sl : sl + K]) for b in range(B)]
-        tf_t, conv_t, fit_t, cerr_t, ff_t = tranche(sl, gate)
-        tfs.append(tf_t)
-        convs.append(conv_t)
-        fits.append(fit_t)
-        cerrs.append(cerr_t)
-        fine_any = [a or f for a, f in zip(fine_any, ff_t)]
-        if t + 1 < NT:
-            acc_t = cand_valid[:, sl : sl + K] & conv_t & (fit_t < thr)
-            n_acc = [a + n for a, n in zip(n_acc, acc_t.sum(dim=-1).cpu().tolist())]
-    tf, conv, fit, cerr = (torch.cat(x, dim=1) for x in (tfs, convs, fits, cerrs))
+        thr = cfg.icp_fitness_threshold
+        tf, conv, fit, cerr, fine_any = tranche(0, [any(v[:K]) for v in valid_h])
+        tfs, convs, fits, cerrs = [tf], [conv], [fit], [cerr]
+        if NT > 1:
+            acc0 = cand_valid[:, :K] & conv & (fit < thr)
+            n_acc = tracing.host_read("detect.accepted", acc0.sum(dim=-1),
+                                      tracing.as_list)
+        for t in range(1, NT):
+            sl = t * K
+            gate = [n_acc[b] < K and any(valid_h[b][sl : sl + K]) for b in range(B)]
+            tf_t, conv_t, fit_t, cerr_t, ff_t = tranche(sl, gate)
+            tfs.append(tf_t)
+            convs.append(conv_t)
+            fits.append(fit_t)
+            cerrs.append(cerr_t)
+            fine_any = [a or f for a, f in zip(fine_any, ff_t)]
+            if t + 1 < NT:
+                acc_t = cand_valid[:, sl : sl + K] & conv_t & (fit_t < thr)
+                n_acc = [a + n for a, n in zip(n_acc, tracing.host_read(
+                    "detect.accepted", acc_t.sum(dim=-1), tracing.as_list))]
+        tf, conv, fit, cerr = (torch.cat(x, dim=1) for x in (tfs, convs, fits, cerrs))
 
-    accepted = cand_valid & conv & (fit < thr)
-    # quota: keep the first K acceptances in ascending-distance order
-    accepted = accepted & (torch.cumsum(accepted.to(torch.int32), -1) <= K)
+        accepted = cand_valid & conv & (fit < thr)
+        # quota: keep the first K acceptances in ascending-distance order
+        accepted = accepted & (torch.cumsum(accepted.to(torch.int32), -1) <= K)
     return [
         LoopDetections(
             accepted=accepted[b],

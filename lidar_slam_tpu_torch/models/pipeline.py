@@ -27,7 +27,6 @@ runs right after its frame, which gives the state the bunched ticks give
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass
 from typing import Callable, Mapping, Optional
 
@@ -47,6 +46,7 @@ from ..ops.occupancy import empty_grid, update_occupancy
 from ..ops.slab_nn import nn1_slab
 from ..ops.voxel import voxel_downsample
 from ..types import PointCloud, strided_prefix_idx
+from ..utils import tracing
 from . import loop_closure as lc
 from . import pose_graph as pg
 
@@ -304,11 +304,16 @@ def init_frame(state: SlamState, config: SlamConfig, raw_pts: torch.Tensor,
                raw_normals: Optional[torch.Tensor] = None) -> SlamState:
     """Frame 0 (SlamNode ctor, slam_node.cpp:64-81): its cloud is stored, but
     not added to the loop DB."""
-    curr = prep_cloud(config, raw_pts, raw_count)
-    normals = _scan_normals(config, curr, raw_normals)
-    lc.add_frame(state.db, curr, 0, config.sc, enabled=False, normals=normals)
-    state.prev, state.prev_normals = curr, normals
-    state.frame_npts[0] = curr.count()
+    with tracing.span("step"):
+        with tracing.span("prep"):
+            curr = prep_cloud(config, raw_pts, raw_count)
+        with tracing.span("normals"):
+            normals = _scan_normals(config, curr, raw_normals)
+        with tracing.span("db_write"):
+            lc.add_frame(state.db, curr, 0, config.sc, enabled=False,
+                         normals=normals)
+        state.prev, state.prev_normals = curr, normals
+        state.frame_npts[0] = curr.count()
     return state
 
 
@@ -320,48 +325,59 @@ def step(state: SlamState, config: SlamConfig, raw_pts: torch.Tensor,
 
     ``debug_nans``: raise ``FloatingPointError`` when the frame's ICP error
     or new pose is not finite, before anything of the frame is stored."""
-    curr = prep_cloud(config, raw_pts, raw_count)
-    # the prepared cloud's count decides the min_points skip. A
-    # host-voxelized scan's is its row count, known on the host; under the
-    # device voxelizer it is the number of occupied voxels (one readback)
-    if config.host_voxelize:
-        npts = min(raw_count, config.max_points)
-    else:
-        npts = int(curr.count())
-    ok = npts >= config.min_points
+    with tracing.span("step"):
+        with tracing.span("prep"):
+            curr = prep_cloud(config, raw_pts, raw_count)
+            # the prepared cloud's count decides the min_points skip. A
+            # host-voxelized scan's is its row count, known on the host;
+            # under the device voxelizer it is the number of occupied
+            # voxels (one readback)
+            if config.host_voxelize:
+                npts = min(raw_count, config.max_points)
+            else:
+                npts = tracing.host_read("voxel.count", curr.count(), int)
+            ok = npts >= config.min_points
 
-    init_T = state.prev_delta if config.icp.warm_start else None
-    res = icp_point_to_plane(curr, state.prev, state.prev_normals, config.icp,
-                             init_T, nn1_fn=nn1_fn)
-    fitness = torch.where(torch.isfinite(res.final_error), res.final_error,
-                          torch.full_like(res.final_error, 1e6))
-    diverged = ~res.converged | (fitness > config.divergence_error)
-    eye = torch.eye(4, dtype=torch.float32, device=raw_pts.device)
-    delta = torch.where(diverged, eye, res.transformation) if ok else eye
+        init_T = state.prev_delta if config.icp.warm_start else None
+        res = icp_point_to_plane(curr, state.prev, state.prev_normals,
+                                 config.icp, init_T, nn1_fn=nn1_fn)
+        with tracing.span("factor"):
+            fitness = torch.where(torch.isfinite(res.final_error),
+                                  res.final_error,
+                                  torch.full_like(res.final_error, 1e6))
+            diverged = ~res.converged | (fitness > config.divergence_error)
+            eye = torch.eye(4, dtype=torch.float32, device=raw_pts.device)
+            delta = torch.where(diverged, eye, res.transformation) if ok else eye
 
-    new_pose = se3.orthonormalize(se3.compose(state.poses[frame - 1], delta))
-    if debug_nans and not (bool(torch.isfinite(res.final_error))
-                           and bool(torch.isfinite(new_pose).all())):
-        raise FloatingPointError(
-            f"frame {frame}: ICP error {float(res.final_error)}, pose "
-            f"{new_pose.cpu().tolist()}"
-        )
-    state.poses[frame] = new_pose
-    pg.add_odometry(state.pg, frame, delta, fitness, valid=ok)
+            new_pose = se3.orthonormalize(se3.compose(state.poses[frame - 1],
+                                                      delta))
+            if debug_nans and not (bool(torch.isfinite(res.final_error))
+                                   and bool(torch.isfinite(new_pose).all())):
+                raise FloatingPointError(
+                    f"frame {frame}: ICP error {float(res.final_error)}, pose "
+                    f"{new_pose.cpu().tolist()}"
+                )
+            state.poses[frame] = new_pose
+            pg.add_odometry(state.pg, frame, delta, fitness, valid=ok)
 
-    world = se3.apply(new_pose, curr.points)
-    state.occ_dropped += update_occupancy(
-        state.grid, world, curr.mask & ok, se3.trans(new_pose)[:2], config.grid
-    )
-    normals = _scan_normals(config, curr, raw_normals)
-    lc.add_frame(state.db, curr, frame, config.sc, enabled=ok, normals=normals)
+        with tracing.span("occupancy"):
+            world = se3.apply(new_pose, curr.points)
+            state.occ_dropped += update_occupancy(
+                state.grid, world, curr.mask & ok, se3.trans(new_pose)[:2],
+                config.grid
+            )
+        with tracing.span("normals"):
+            normals = _scan_normals(config, curr, raw_normals)
+        with tracing.span("db_write"):
+            lc.add_frame(state.db, curr, frame, config.sc, enabled=ok,
+                         normals=normals)
 
-    state.n_poses = max(state.n_poses, frame + 1)
-    state.prev, state.prev_normals, state.prev_delta = curr, normals, delta
-    state.icp_error[frame] = fitness
-    state.icp_iters[frame] = res.num_iterations
-    state.icp_converged[frame] = res.converged
-    state.frame_npts[frame] = npts
+        state.n_poses = max(state.n_poses, frame + 1)
+        state.prev, state.prev_normals, state.prev_delta = curr, normals, delta
+        state.icp_error[frame] = fitness
+        state.icp_iters[frame] = res.num_iterations
+        state.icp_converged[frame] = res.converged
+        state.frame_npts[frame] = npts
     return state
 
 
@@ -390,14 +406,15 @@ def record_detection(state: SlamState, config: SlamConfig,
     """A tick's detections into the state, in place: the accepted loop
     factors, the counters, ``pending_optimize``; returns the number of loops
     accepted."""
-    acc = det.accepted.cpu().tolist()
-    matches = det.match_frame.cpu().tolist()
+    acc = tracing.host_read("record.accepted", det.accepted, tracing.as_list)
+    matches = tracing.host_read("record.match", det.match_frame, tracing.as_list)
     for k, a in enumerate(acc):
         if a:
             pg.add_loop(state.pg, matches[k], det.query_frame, det.transform[k])
     n_found = sum(acc)
     state.loop_count += n_found
-    state.verify_fired += int(bool(torch.isfinite(det.sc_distance).any()))
+    state.verify_fired += int(tracing.host_read(
+        "record.fired", torch.isfinite(det.sc_distance).any()))
     state.verify_fine_fired += int(det.fine_fired)
     state.verify_bound_hit += int(
         det.n_valid > len(acc) and n_found < config.lc.max_candidates
@@ -414,11 +431,14 @@ def loop_tick(state: SlamState, config: SlamConfig, frame: int) -> lc.LoopDetect
     The optimize is gated on FRESH finds only, not on a persisting pending
     flag: a chunk that cannot reach its tolerance would otherwise run again
     at every cadence tick."""
-    det = lc.detect(state.db, config.lc, config.sc, nn1_fn=knn_cuda.nn1,
-                    query=frame)
-    n_found = record_detection(state, config, det)
-    if config.optimize_midrun and n_found > 0:
-        optimize_on_find(state, config)
+    with tracing.span("tick"):
+        det = lc.detect(state.db, config.lc, config.sc, nn1_fn=knn_cuda.nn1,
+                        query=frame)
+        with tracing.span("record"):
+            n_found = record_detection(state, config, det)
+        if config.optimize_midrun and n_found > 0:
+            with tracing.span("optimize"):
+                optimize_on_find(state, config)
     return det
 
 
@@ -438,11 +458,6 @@ def rebuild_occupancy(state: SlamState, config: SlamConfig) -> SlamState:
     return state
 
 
-def _sync(t: torch.Tensor) -> None:
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-
-
 def finalize_state(state: SlamState, config: SlamConfig,
                    timing: Optional[dict] = None) -> pg.OptimizeResult:
     """Final pose-graph optimization to convergence on the device, then the
@@ -459,28 +474,22 @@ def finalize_state(state: SlamState, config: SlamConfig,
     sync) for ``optimize`` and ``rebuild``, and the solver's stages:
     ``f32_s``/``f32_it`` for the chunks (other configs only) and
     ``f64_s``/``f64_it`` for the float64 LM."""
-    t0 = time.perf_counter()
     graph = state.pg.replace(poses=state.poses)
     cfg = config.pg
-    if cfg.relative_param and cfg.solver == "woodbury":
-        res = pg.optimize(pg.compact_loops(graph).to(torch.float64), cfg)
-        if timing is not None:
-            timing["f64_s"] = time.perf_counter() - t0
-            timing["f64_it"] = res.iterations
-    else:
-        res = pg.optimize_chunked(graph, cfg, chunk=cfg.inline_max_iterations,
-                                  timing=timing)
-    n = state.n_poses
-    state.poses[:n] = res.poses[:n].to(torch.float32)
-    state.pending_optimize = False
-    if timing is not None:
-        _sync(state.poses)
-        timing["optimize"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-    rebuild_occupancy(state, config)
-    if timing is not None:
-        _sync(state.grid)
-        timing["rebuild"] = time.perf_counter() - t0
+    with tracing.span("optimize", timing, sync=state.poses.device):
+        if cfg.relative_param and cfg.solver == "woodbury":
+            with tracing.span("f64", timing, key="f64_s"):
+                res = pg.optimize(pg.compact_loops(graph).to(torch.float64), cfg)
+            if timing is not None:
+                timing["f64_it"] = res.iterations
+        else:
+            res = pg.optimize_chunked(graph, cfg, chunk=cfg.inline_max_iterations,
+                                      timing=timing)
+        n = state.n_poses
+        state.poses[:n] = res.poses[:n].to(torch.float32)
+        state.pending_optimize = False
+    with tracing.span("rebuild", timing, sync=state.grid.device):
+        rebuild_occupancy(state, config)
     return res
 
 
@@ -516,10 +525,16 @@ class SlamEngine:
     ``device`` is where every state tensor lives: the card by default. The
     engine never moves to the CPU on its own: without CUDA the default
     raises, and the CPU must be asked for (as the tests do). ``debug_nans``
-    checks every frame's ICP error and pose for finiteness (see :func:`step`)."""
+    checks every frame's ICP error and pose for finiteness (see :func:`step`).
+
+    ``trace``: record spans, counters and host syncs in every call
+    (``utils/tracing.py``); without it they are recorded only in calls
+    that start while a ``torch.profiler`` session is active. Either way
+    :meth:`metrics` then carries them under ``"trace"``, from the last
+    :meth:`reset` on."""
 
     def __init__(self, config: SlamConfig, device="cuda",
-                 debug_nans: bool = False):
+                 debug_nans: bool = False, trace: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -529,6 +544,8 @@ class SlamEngine:
         pin_f32_matmuls()
         self.config = config
         self.debug_nans = debug_nans
+        self.trace = trace
+        self.tracer = tracing.Tracer()
         self._nn1 = resolve_nn1(config)
         self._resident: Optional[tuple] = None
         self.state = init_state(config, self.device)
@@ -536,9 +553,19 @@ class SlamEngine:
 
     def reset(self) -> None:
         """Blank the SLAM state for another run in this process (benchmark
-        repetitions, a warm-up pass); preloaded scans stay on the device."""
-        self.state = init_state(self.config, self.device)
+        repetitions, a warm-up pass); preloaded scans stay on the device.
+        The tracer's records start anew."""
+        self.tracer.clear()
+        with self._traced(-1), tracing.span("reset"):
+            self.state = init_state(self.config, self.device)
         self._frame = 0
+
+    def _traced(self, frame: int):
+        """The tracer bound for one call at ``frame``, or the no-op while
+        tracing is off."""
+        if self.trace or tracing.profiler_active():
+            return self.tracer.bind(frame)
+        return tracing.NULL
 
     # -- scan feeding ------------------------------------------------------
 
@@ -555,11 +582,13 @@ class SlamEngine:
         n = min(len(pts), cap)
         out = np.zeros((cap, 3), np.float32)
         out[:n] = pts[:n]
-        return torch.from_numpy(out).to(self.device), n
+        with tracing.waiting("upload"):   # a pageable copy: the stream syncs
+            return torch.from_numpy(out).to(self.device), n
 
     def _process(self, raw: torch.Tensor, count: int, frame: int,
                  raw_normals: Optional[torch.Tensor] = None):
         cfg = self.config
+        self.tracer.frame = frame
         if frame == 0:
             init_frame(self.state, cfg, raw, count, raw_normals)
             return None
@@ -578,17 +607,19 @@ class SlamEngine:
         when that is set and none are given they are computed here with the
         native radius estimator. With ``sync_info`` a tick that accepted a
         loop returns ``{"found", "query", "matches"}``."""
-        raw, count = self.pad_scan(pts)
-        nrm = None
-        if self.config.host_normals:
-            if normals is None:
-                from ..utils.native import normals_radius_host
+        with self._traced(self._frame), tracing.span("push_scan"):
+            with tracing.span("upload"):
+                raw, count = self.pad_scan(pts)
+                nrm = None
+                if self.config.host_normals:
+                    if normals is None:
+                        from ..utils.native import normals_radius_host
 
-                normals = normals_radius_host(
-                    pts[:count], self.config.effective_normal_radius
-                )
-            nrm, _ = self.pad_scan(normals)
-        det = self._process(raw, count, self._frame, nrm)
+                        normals = normals_radius_host(
+                            pts[:count], self.config.effective_normal_radius
+                        )
+                    nrm, _ = self.pad_scan(normals)
+            det = self._process(raw, count, self._frame, nrm)
         self._frame += 1
         if not sync_info or det is None:
             return None
@@ -639,10 +670,11 @@ class SlamEngine:
         if self._frame < row0:
             raise ValueError(f"preload(frame0={row0}) starts past engine "
                              f"frame {self._frame}")
-        for f in range(self._frame, row0 + store.shape[0]):
-            r = f - row0
-            self._process(store[r], int(counts[r]), f,
-                          None if nstore is None else nstore[r])
+        with self._traced(self._frame):
+            for f in range(self._frame, row0 + store.shape[0]):
+                r = f - row0
+                self._process(store[r], int(counts[r]), f,
+                              None if nstore is None else nstore[r])
         self._frame = row0 + store.shape[0]
 
     def flush(self) -> None:
@@ -658,12 +690,10 @@ class SlamEngine:
         ``timing``: optional dict filled with per-stage wall seconds, each
         after a device sync (``flush``, ``optimize``, ``rebuild``), and the
         solver's stages (``f32_s``/``f32_it``, ``f64_s``/``f64_it``)."""
-        t0 = time.perf_counter()
-        self.flush()
-        if timing is not None:
-            _sync(self.state.poses)
-            timing["flush"] = time.perf_counter() - t0
-        return finalize_state(self.state, self.config, timing)
+        with self._traced(-1), tracing.span("finalize"):
+            with tracing.span("flush", timing, sync=self.device):
+                self.flush()
+            return finalize_state(self.state, self.config, timing)
 
     # -- results -----------------------------------------------------------
 
@@ -676,7 +706,12 @@ class SlamEngine:
         return self.state.poses[: self.state.n_poses].cpu().numpy().copy()
 
     def metrics(self) -> dict:
-        return state_metrics(self.state)
+        """:func:`state_metrics`, plus ``"trace"`` (the tracer's records
+        since :meth:`reset`) where tracing was on in a call since then."""
+        out = state_metrics(self.state)
+        if self.trace or self.tracer.armed:
+            out["trace"] = self.tracer.records()
+        return out
 
     def loop_pairs(self) -> list:
         """Accepted (query, match) frame pairs, in acceptance order."""

@@ -28,13 +28,13 @@ Factors are written IN PLACE; ``n_poses``, ``n_loops`` and
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass
 
 import torch
 
 from ..config import PoseGraphConfig
 from ..ops import se3
+from ..utils import tracing
 
 
 @dataclass
@@ -304,7 +304,7 @@ def _woodbury_solve(state: PoseGraphState, cfg: PoseGraphConfig, lam: float,
     bt = BT(y1).reshape(L * 6, 1)
     Lc, info = torch.linalg.cholesky_ex(K)
     alpha = torch.cholesky_solve(bt, Lc).reshape(L, 6)
-    return y1 - Dinv * B(alpha), int(info) == 0
+    return y1 - Dinv * B(alpha), tracing.host_read("pg.cholesky", info, int) == 0
 
 
 def _cg_solve(matvec, b: torch.Tensor, iters: int, tol: float) -> torch.Tensor:
@@ -319,7 +319,7 @@ def _cg_solve(matvec, b: torch.Tensor, iters: int, tol: float) -> torch.Tensor:
     rs = torch.sum(r * r)
     tol = tol * torch.clamp(rs, min=1e-30)
     i = 0
-    while i < iters and bool(rs > tol):
+    while i < iters and tracing.host_read("pg.cg", rs > tol):
         Ap = matvec(p)
         alpha = rs / torch.clamp(torch.sum(p * Ap), min=1e-30)
         x = x + alpha * p
@@ -393,7 +393,7 @@ def graph_error(state: PoseGraphState, cfg: PoseGraphConfig) -> float:
     zero = torch.zeros((state.poses.shape[0], 6), dtype=state.poses.dtype,
                        device=state.poses.device)
     r = _residuals(state, zero, cfg)
-    return float(0.5 * torch.sum(r * r))
+    return tracing.host_read("pg.cost", 0.5 * torch.sum(r * r), float)
 
 
 def optimize(state: PoseGraphState, cfg: PoseGraphConfig = PoseGraphConfig(),
@@ -458,35 +458,33 @@ def optimize_chunked(state: PoseGraphState,
     iterations, ``f32_s``/``f32_it`` and ``f64_s``/``f64_it`` (every LM
     iteration reads its cost on the host, so a stage's work is done when its
     clock stops)."""
-    t0 = time.perf_counter()
-    state = compact_loops(state).to(torch.float32)
-    res = None
-    total_it = matvecs = 0
-    prev_err = float("inf")
-    for _ in range(-(-cfg.max_iterations // chunk)):
-        st = state if res is None else state.replace(poses=res.poses)
-        res = optimize(st, cfg, max_iterations=chunk)
-        total_it += res.iterations
-        matvecs += res.cg_matvecs
-        if res.converged or res.iterations < chunk:
-            break
-        if res.final_error > prev_err * 0.99:
-            break  # a whole chunk moved the cost < 1%: float32 has stalled
-        prev_err = res.final_error
+    with tracing.span("f32", timing, key="f32_s"):
+        state = compact_loops(state).to(torch.float32)
+        res = None
+        total_it = matvecs = 0
+        prev_err = float("inf")
+        for _ in range(-(-cfg.max_iterations // chunk)):
+            st = state if res is None else state.replace(poses=res.poses)
+            res = optimize(st, cfg, max_iterations=chunk)
+            total_it += res.iterations
+            matvecs += res.cg_matvecs
+            if res.converged or res.iterations < chunk:
+                break
+            if res.final_error > prev_err * 0.99:
+                break  # a whole chunk moved the cost < 1%: float32 has stalled
+            prev_err = res.final_error
     if timing is not None:
-        timing["f32_s"] = time.perf_counter() - t0
         timing["f32_it"] = total_it
-        t0 = time.perf_counter()
     if not res.converged:
-        f64 = optimize(
-            state.replace(poses=res.poses).to(torch.float64),
-            dataclasses.replace(cfg, solver="woodbury", relative_param=True),
-            max_iterations=cfg.max_iterations,
-        )
-        total_it += f64.iterations
-        if f64.final_error < res.final_error:
-            res = dataclasses.replace(f64, poses=f64.poses.to(torch.float32))
+        with tracing.span("f64", timing, key="f64_s"):
+            f64 = optimize(
+                state.replace(poses=res.poses).to(torch.float64),
+                dataclasses.replace(cfg, solver="woodbury", relative_param=True),
+                max_iterations=cfg.max_iterations,
+            )
+            total_it += f64.iterations
+            if f64.final_error < res.final_error:
+                res = dataclasses.replace(f64, poses=f64.poses.to(torch.float32))
         if timing is not None:
-            timing["f64_s"] = time.perf_counter() - t0
             timing["f64_it"] = f64.iterations
     return dataclasses.replace(res, iterations=total_it, cg_matvecs=matvecs)

@@ -25,6 +25,7 @@ import torch
 
 from ..config import ICPConfig
 from ..types import ICPResult, PointCloud, strided_prefix_idx
+from ..utils import tracing
 from . import knn_cuda, se3
 from .linalg import solve_psd_small
 from .normals import estimate_normals
@@ -129,7 +130,17 @@ def icp_point_to_plane(
 
     ``inactive`` (bool per lane): the lane starts converged; only the final
     correspondence pass runs for it.
+
+    Traced as an ``icp`` span (with the K1 and K2 launches it made):
+    ``coarse``, an ``iter`` per loop pass ending at its ``icp.active``
+    read, and ``final``.
     """
+    with tracing.span("icp", kernels=knn_cuda.KERNELS):
+        return _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn,
+                    inactive)
+
+
+def _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn, inactive):
     batched = tgt.points.dim() == 3
     if not batched:
         tgt = PointCloud(tgt.points[None], tgt.mask[None])
@@ -184,14 +195,15 @@ def icp_point_to_plane(
         src = src.subsample(config.sample_points)
 
     if config.coarse_iterations > 0 and config.coarse_sample < src.points.shape[-2]:
-        csrc = full_src.subsample(config.coarse_sample)
-        for _ in range(config.coarse_iterations):
-            cur = se3.apply(T, csrc.points)
-            matched, nrm = match_query(cur)
-            delta = solve_point_to_plane(
-                cur, matched, nrm, csrc.mask, config.solver_damping
-            )
-            T = lane_compose(delta, T)
+        with tracing.span("coarse"):
+            csrc = full_src.subsample(config.coarse_sample)
+            for _ in range(config.coarse_iterations):
+                cur = se3.apply(T, csrc.points)
+                matched, nrm = match_query(cur)
+                delta = solve_point_to_plane(
+                    cur, matched, nrm, csrc.mask, config.solver_damping
+                )
+                T = lane_compose(delta, T)
 
     w = src.mask.to(dtype)
     denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)
@@ -213,42 +225,47 @@ def icp_point_to_plane(
     slots = torch.arange(max_it + 1, device=device)
 
     active = (it < max_it) & ~converged
-    while bool(active.any()):
-        c_cur, c_matched, c_nrm = correspondences(T)
-        err = _plane_error(c_cur, c_matched, c_nrm, w, denom)
-        conv = (err < config.min_error) | (
-            torch.abs(prev_err - err) < config.tolerance
-        )
-        delta = solve_point_to_plane(
-            c_cur, c_matched, c_nrm, src.mask, config.solver_damping
-        )
-        T_new = torch.where(conv[:, None, None], T, lane_compose(delta, T))
-        a = active
-        hist = torch.where(
-            a[:, None] & (slots[None, :] == it[:, None]), err[:, None], hist
-        )
-        T = torch.where(a[:, None, None], T_new, T)
-        prev_err = torch.where(a, err, prev_err)
-        converged = torch.where(a, conv, converged)
-        a3 = a[:, None, None]
-        cur = torch.where(a3, c_cur, cur)
-        matched = torch.where(a3, c_matched, matched)
-        nrm = torch.where(a3, c_nrm, nrm)
-        it = it + a.to(torch.int32)
-        active = (it < max_it) & ~converged
+    go = tracing.host_read("icp.active", active.any())
+    while go:
+        with tracing.span("iter"):
+            c_cur, c_matched, c_nrm = correspondences(T)
+            err = _plane_error(c_cur, c_matched, c_nrm, w, denom)
+            conv = (err < config.min_error) | (
+                torch.abs(prev_err - err) < config.tolerance
+            )
+            delta = solve_point_to_plane(
+                c_cur, c_matched, c_nrm, src.mask, config.solver_damping
+            )
+            T_new = torch.where(conv[:, None, None], T, lane_compose(delta, T))
+            a = active
+            hist = torch.where(
+                a[:, None] & (slots[None, :] == it[:, None]), err[:, None], hist
+            )
+            T = torch.where(a[:, None, None], T_new, T)
+            prev_err = torch.where(a, err, prev_err)
+            converged = torch.where(a, conv, converged)
+            a3 = a[:, None, None]
+            cur = torch.where(a3, c_cur, cur)
+            matched = torch.where(a3, c_matched, matched)
+            nrm = torch.where(a3, c_nrm, nrm)
+            it = it + a.to(torch.int32)
+            active = (it < max_it) & ~converged
+            go = tracing.host_read("icp.active", active.any())
 
     # Final error with the final correspondences: reuse the last iteration's
     # on a converged exit, recompute on budget exhaustion or a zero-iteration
     # (inactive) start.
-    need = ~(converged & (it > 0))
-    if bool(need.any()):
-        f_cur, f_matched, f_nrm = correspondences(T)
-        n3 = need[:, None, None]
-        cur = torch.where(n3, f_cur, cur)
-        matched = torch.where(n3, f_matched, matched)
-        nrm = torch.where(n3, f_nrm, nrm)
-    final_err = _plane_error(cur, matched, nrm, w, denom)
-    hist = torch.where(slots[None, :] == it[:, None], final_err[:, None], hist)
+    with tracing.span("final"):
+        need = ~(converged & (it > 0))
+        if tracing.host_read("icp.need", need.any()):
+            f_cur, f_matched, f_nrm = correspondences(T)
+            n3 = need[:, None, None]
+            cur = torch.where(n3, f_cur, cur)
+            matched = torch.where(n3, f_matched, matched)
+            nrm = torch.where(n3, f_nrm, nrm)
+        final_err = _plane_error(cur, matched, nrm, w, denom)
+        hist = torch.where(slots[None, :] == it[:, None], final_err[:, None],
+                           hist)
 
     res = ICPResult(T, converged, it, hist, final_err)
     if not batched:

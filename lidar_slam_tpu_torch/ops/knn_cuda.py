@@ -43,6 +43,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import tracing
 from .knn import SENTINEL, mask_points, sq_dist
 from .knn import nn1 as nn1_torch
 
@@ -117,7 +118,8 @@ class CudaKernel:
 
     def launch(self, *args) -> None:
         fn = getattr(load_library(), self.symbol)
-        rc = fn(*args)
+        with tracing.launching(self.name):
+            rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: cudaError {rc}")
         self.launches += 1

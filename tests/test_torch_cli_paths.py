@@ -94,14 +94,22 @@ def test_resident_and_streaming_agree(data, streamed_short, tmp_path, capsys,
 
 def test_modes_host_normals_and_profile(data, tmp_path):
     """``--mode fast`` with radius normals estimated by the loader's workers
-    (``host_normals``) follows the route, and ``--profile`` writes a trace;
-    ``--mode fidelity`` runs."""
+    (``host_normals``) follows the route, and ``--profile`` writes a trace
+    and the engine's spans (a ``push_scan`` a frame, on ``perf_counter``
+    with the profiler's clock offset); ``--mode fidelity`` runs."""
     prof = str(tmp_path / "prof")
     traj = _run(data, str(tmp_path / "fast"), "--mode", "fast",
                 "--normal-method", "radius", "--profile", prof)
     assert traj.shape == (SHORT, 12) and np.isfinite(traj).all()
     assert np.abs(traj[-1, [3, 7]] - traj[0, [3, 7]]).max() > 1.0  # it moved
     assert os.path.getsize(os.path.join(prof, "trace.json")) > 0
+    with open(os.path.join(prof, "spans.json")) as f:
+        spans = json.load(f)
+    assert isinstance(spans["clock_offset_ns"], int)
+    roots = [s["frame"] for s in spans["spans"] if s["name"] == "push_scan"]
+    assert roots == list(range(SHORT))
+    # each frame uploads its points and the host's normals
+    assert spans["counters"]["host_syncs.upload"] == 2 * SHORT
     traj = _run(data, str(tmp_path / "fid"), "--mode", "fidelity")
     assert traj.shape == (SHORT, 12) and np.isfinite(traj).all()
 

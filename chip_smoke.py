@@ -8,7 +8,8 @@ Run from the repository root, with no install and no arguments:
 Phases, one line each (plus details):
 
 1. environment: torch and CUDA versions, the card, nvcc, the power limit;
-2. kernel build: ``csrc/knn.cu`` compiled by nvcc for sm_90a;
+2. kernel build: ``csrc/knn.cu`` and ``csrc/icp_step.cu`` compiled by
+   nvcc for sm_90a;
 3. K1 (slab match) and K2 (brute-force 1-NN) against their plain PyTorch
    versions at the main path's shapes (4,096 sources against 32,768
    targets, window 4,096; K2 also 3 lanes at once and a masked tail):
@@ -101,10 +102,13 @@ Phases, one line each (plus details):
    same graph.
 
 Every phase counts each kernel's launches by launch shape (lanes x sources
-x targets, and K1's window); every launch must fall in a kernel row
-measured at its own shape: a K2 shape that no row of phases 3 and 6 covers
-gets a row measured on the first inputs the main path gave it there
-(``missing_k2_rows``). The last lines are a JSON line of per-kernel
+x targets, and K1's window; lanes x rows for ``icp_step``); every launch
+must fall in a kernel row measured at its own shape: a K2 shape that no
+row of phases 3 and 6 covers gets a row measured on the first inputs the
+main path gave it there (``missing_k2_rows``), and every ``icp_step`` shape
+a row on the first operands of its first launch other than ``apply``
+(``icp_step_rows``: against ``icp_step_torch``, its CUDA-graph time, the
+plain version's and its bytes bound). The last lines are a JSON line of per-kernel
 results, the card's name and power limit, and ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without printing the result lines. There is
 no CPU fallback: without CUDA it exits with code 2.
@@ -611,7 +615,7 @@ def run_engine(scans, gt, dev):
 
     cfg = slice_config()
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in knn_cuda.KERNELS:  # count only the main path's launches
+    for k in kernels():  # count only the main path's launches
         k.launches = 0
     eng = SlamEngine(cfg, dev)
     eng.preload(scans)
@@ -626,7 +630,7 @@ def run_engine(scans, gt, dev):
         eng.finalize()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-    launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+    launches = {k.name: k.launches for k in kernels()}
     traj = eng.trajectory()
     m = eng.metrics()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -654,14 +658,53 @@ def run_engine(scans, gt, dev):
                 graph=graph, gt=gt)
 
 
+def kernels() -> tuple:
+    """The hand-written kernels, whose launches every phase counts: K1 and
+    K2 (``csrc/knn.cu``) and ``icp_step`` (``csrc/icp_step.cu``)."""
+    from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda
+
+    return knn_cuda.KERNELS + icp_cuda.KERNELS
+
+
 def launch_shape(name: str, args) -> str:
     """A launch's shape from its C arguments: ``LxSxT`` for K2
-    (``lst_nn1(src, soa, lanes, S, T, ...)``, T padded to the tile) and
+    (``lst_nn1(src, soa, lanes, S, T, ...)``, T padded to the tile),
     ``LxSxTwW`` for K1 (``lst_match_slab(src, lanes, S, tgt8, T, ...)``,
-    the window ``W`` at argument 10); the kernel rows' ``shape``."""
+    the window ``W`` at argument 10) and ``LxN`` (lanes x source rows) for
+    ``icp_step`` (``lst_icp_step(&args, stream)``, every mode); the kernel
+    rows' ``shape``."""
     if name == "match_slab":
         return f"{args[1]}x{args[2]}x{args[4]}w{args[10]}"
+    if name == "icp_step":
+        a = args[0].contents
+        return f"{a.lanes}x{a.rows}"
     return f"{args[2]}x{args[3]}x{args[4]}"
+
+
+def icp_snapshot(mode, st, cur, mask, match) -> dict:
+    """A copy of one ``icp_step`` launch's operands, taken before it runs:
+    the state, ``cur``, the mask and the matches (row-aligned matches
+    repacked as K1 writes them, 8 floats a row)."""
+    import torch
+
+    pts, nrm, idx = match
+    if idx is None:
+        q = torch.zeros((*pts.shape[:2], 8), dtype=pts.dtype, device=pts.device)
+        q[..., 0:3], q[..., 3:6] = pts, nrm
+        pts, nrm = q[..., 0:3], q[..., 3:6]
+    else:
+        pts, nrm, idx = pts.clone(), nrm.clone(), idx.clone()
+    return dict(mode=mode, state=clone_state(st), cur=cur.clone(),
+                mask=mask.clone(), match=(pts, nrm, idx))
+
+
+def clone_state(st):
+    import dataclasses
+
+    return dataclasses.replace(st, args=None, part=None, **{
+        f: getattr(st, f).clone() for f in
+        ("T", "err", "ticks", "it", "prev_err", "converged", "hist")
+        if getattr(st, f) is not None})
 
 
 class KernelShapes:
@@ -669,19 +712,22 @@ class KernelShapes:
     counted while a ``with`` block runs (it wraps the kernels' ``launch``
     and calls the originals): ``shapes["nn1"]["3x4096x32768"]``. It also
     keeps a copy of the first inputs K2 was given at each launch shape
-    (``inputs[shape] = (src, tgt, mask)``, lanes first), so that a shape
-    no kernel row covers yet can be measured on the main path's own data
-    (``missing_k2_rows``)."""
+    (``inputs[shape] = (src, tgt, mask)``, lanes first), and of the first
+    ``icp_step`` launch other than ``apply`` at each of its shapes
+    (``icp_inputs[shape]``, ``icp_snapshot``), so that a shape no kernel
+    row covers yet can be measured on the main path's own data
+    (``missing_k2_rows``, ``icp_step_rows``)."""
 
     def __init__(self):
-        self.shapes = {"match_slab": {}, "nn1": {}}
+        self.shapes = {k.name: {} for k in kernels()}
         self.inputs = {}
+        self.icp_inputs = {}
 
     def __enter__(self):
-        from lidar_slam_tpu_torch.ops import knn_cuda
+        from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda
 
-        self._orig = {k: k.launch for k in knn_cuda.KERNELS}
-        for k in knn_cuda.KERNELS:
+        self._orig = {k: k.launch for k in kernels()}
+        for k in kernels():
             def launch(*args, k=k, orig=k.launch):
                 orig(*args)
                 key = launch_shape(k.name, args)
@@ -707,14 +753,25 @@ class KernelShapes:
             return spy_query
 
         knn_cuda._nn1_prepare_cuda = spy_prepare
+        self._icp_launch = icp_launch = icp_cuda.launch
+        icp_inputs = self.icp_inputs
+
+        def spy_icp_launch(mode, st, cur, src=None, mask=None, match=None):
+            key = f"{cur.shape[0]}x{cur.shape[1]}"
+            if mode != "apply" and key not in icp_inputs:
+                icp_inputs[key] = icp_snapshot(mode, st, cur, mask, match)
+            icp_launch(mode, st, cur, src=src, mask=mask, match=match)
+
+        icp_cuda.launch = spy_icp_launch
         return self
 
     def __exit__(self, *exc):
-        from lidar_slam_tpu_torch.ops import knn_cuda
+        from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda
 
         for k, orig in self._orig.items():
             k.launch = orig
         knn_cuda._nn1_prepare_cuda = self._prepare
+        icp_cuda.launch = self._icp_launch
 
 
 class RunSpy(KernelShapes):
@@ -777,12 +834,12 @@ def run_cli(tag, argv, n_frames, dev):
     out_dir = argv[argv.index("--out-dir") + 1]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in knn_cuda.KERNELS:
+    for k in kernels():
         k.launches = 0
     with RunSpy() as spy:
         rc = cli.main(argv)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+    launches = {k.name: k.launches for k in kernels()}
     peak = torch.cuda.max_memory_allocated(dev)
     check(rc == 0, f"[{tag}] the command line returned {rc}")
     for name in ARTIFACTS:
@@ -1001,7 +1058,7 @@ def run_cli_batch(work, dev):
     out_dir = os.path.join(work, "out_batch")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in knn_cuda.KERNELS:
+    for k in kernels():
         k.launches = 0
     Engine.preload, Engine.finalize = spy_preload, spy_finalize
     try:
@@ -1011,7 +1068,7 @@ def run_cli_batch(work, dev):
         torch.cuda.synchronize()
     finally:
         Engine.preload, Engine.finalize = preload, finalize
-    launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+    launches = {k.name: k.launches for k in kernels()}
     peak = torch.cuda.max_memory_allocated(dev)
     check(rc == 0, f"[cli-batch] the command line returned {rc}")
     files = ["metrics.json"] + [f"trajectory_{n}.txt" for n in names]
@@ -1046,14 +1103,14 @@ def run_cli_batch(work, dev):
         f"{launches}, by shape {spy.shapes}")
 
     # the same prepared scans and configuration through the single engine
-    one_launches = {k.name: 0 for k in knn_cuda.KERNELS}
+    one_launches = {k.name: 0 for k in kernels()}
     t_up = t_dev = 0.0
     one_peak = 0
     with KernelShapes() as one_spy:
         for b in range(B):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            for k in knn_cuda.KERNELS:
+            for k in kernels():
                 k.launches = 0
             one = SlamEngine(cfg, dev)
             t0 = time.perf_counter()
@@ -1067,7 +1124,7 @@ def run_cli_batch(work, dev):
             t2 = time.perf_counter()
             t_up, t_dev = t_up + (t1 - t0), t_dev + (t2 - t1)
             one_peak = max(one_peak, torch.cuda.max_memory_allocated(dev))
-            for k in knn_cuda.KERNELS:
+            for k in kernels():
                 one_launches[k.name] += k.launches
             om, traj = one.metrics(), one.trajectory()
             ate, ate_b = ate_rmse(traj, gt), m["ate_rmse"][names[b]]
@@ -1259,7 +1316,7 @@ def run_rings(ring_dirs, dev):
         """One ``SlamEngine`` run with the counts set to 0 just before."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        for k in knn_cuda.KERNELS:
+        for k in kernels():
             k.launches = 0
         eng = pipeline.SlamEngine(config, dev)
         eng.preload(scans)
@@ -1273,7 +1330,7 @@ def run_rings(ring_dirs, dev):
             eng.finalize()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-        launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+        launches = {k.name: k.launches for k in kernels()}
         traj, m = eng.trajectory(), eng.metrics()
         check(bool(np.isfinite(traj).all()), f"[{tag}] non-finite poses")
         check(m["loop_count"] >= 1, f"[{tag}] no loop closed on the revisit")
@@ -1317,7 +1374,7 @@ def run_rings(ring_dirs, dev):
     lanes = [scans0, scans1]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in knn_cuda.KERNELS:
+    for k in kernels():
         k.launches = 0
     beng = BatchedSlamEngine(cfg, len(lanes), dev,
                              optimize_midrun=cfg.optimize_midrun)
@@ -1332,7 +1389,7 @@ def run_rings(ring_dirs, dev):
         beng.finalize()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    b_launch = {k.name: k.launches for k in knn_cuda.KERNELS}
+    b_launch = {k.name: k.launches for k in kernels()}
     b_traj, b_m = beng.trajectories(), beng.metrics()
     del beng
     check(bool(np.isfinite(b_traj).all()), "[rings-batch] non-finite poses")
@@ -1344,7 +1401,7 @@ def run_rings(ring_dirs, dev):
         f"GiB; loops {[m['loop_count'] for m in b_m]}, verify_fired "
         f"{[m['verify_fired'] for m in b_m]}; launches {b_launch}, by shape "
         f"{bshapes.shapes}")
-    singles = dict(launches={k.name: 0 for k in knn_cuda.KERNELS})
+    singles = dict(launches={k.name: 0 for k in kernels()})
     with KernelShapes() as one_shapes:
         for b, scans in enumerate(lanes):
             one = engine_run(f"rings-batch lane {b} alone", cfg, scans)
@@ -1753,11 +1810,11 @@ def run_sharded_dense(dense, gt, devs, dev):
     out = {}
     for tag, cfg in (("example", example), ("tracking", tracking)):
         if tag == "tracking":
-            for k in knn_cuda.KERNELS:
+            for k in kernels():
                 k.launches = 0
         with KernelShapes() as spy:
             run = drive(cfg, sharded)
-        launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+        launches = {k.name: k.launches for k in kernels()}
         with KernelShapes() as ref_spy:
             ref = drive(cfg, knn_cuda.nn1)
         same = bool(np.array_equal(run["traj"], ref["traj"]))
@@ -1792,13 +1849,13 @@ def run_dryrun(devs):
     from lidar_slam_tpu_torch.ops import knn_cuda
     from lidar_slam_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    for k in knn_cuda.KERNELS:
+    for k in kernels():
         k.launches = 0
     t0 = time.perf_counter()
     with KernelShapes() as spy:
         out = dryrun_multichip(SHARDS, devices=devs, flagship_points=DENSE_POINTS)
     secs = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+    launches = {k.name: k.launches for k in kernels()}
     log(f"[dryrun] {secs:.2f} s: mesh {out['mesh']}, lanes {out['batch']}, "
         f"n_poses {out['n_poses']}, retrieval top-1 {out['top1']}, flagship "
         f"{out['flagship_points']} points; launches {launches}, by shape "
@@ -1845,7 +1902,7 @@ def run_batch_mode(tag, mode, dirs, extra, work, devs, dev, keep=None):
 
     def reset():
         torch.cuda.synchronize()
-        for k in knn_cuda.KERNELS:
+        for k in kernels():
             k.launches = 0
         chunks[0] = 0
 
@@ -1853,7 +1910,7 @@ def run_batch_mode(tag, mode, dirs, extra, work, devs, dev, keep=None):
         return dict(pairs=eng.loop_pairs(), metrics=eng.metrics(),
                     traj=eng.trajectories(), odo=odo, seconds=t,
                     chunks=chunks[0],
-                    launches={k.name: k.launches for k in knn_cuda.KERNELS})
+                    launches={k.name: k.launches for k in kernels()})
 
     Engine.preload, Engine.finalize = spy_preload, spy_finalize
     batched.gated_optimize = counted
@@ -1907,7 +1964,7 @@ def run_batch_mode(tag, mode, dirs, extra, work, devs, dev, keep=None):
                 torch.cuda.synchronize()
                 singles.append(summary(one, o_odo, time.perf_counter() - t0))
                 del one
-        s_launch = {k.name: k.launches for k in knn_cuda.KERNELS}
+        s_launch = {k.name: k.launches for k in kernels()}
     finally:
         Engine.preload, Engine.finalize = preload, finalize
         batched.gated_optimize = gated
@@ -1992,7 +2049,7 @@ def run_pg_cg(lane, engine, dev):
     eng = pipeline.SlamEngine(cfg, dev)
     eng.preload(lane["seq"])
     torch.cuda.synchronize()
-    for k in knn_cuda.KERNELS:
+    for k in kernels():
         k.launches = 0
     pipeline.optimize_on_find = spy
     try:
@@ -2008,7 +2065,7 @@ def run_pg_cg(lane, engine, dev):
             t2 = time.perf_counter()
     finally:
         pipeline.optimize_on_find = orig
-    launches = {k.name: k.launches for k in knn_cuda.KERNELS}
+    launches = {k.name: k.launches for k in kernels()}
     traj, m, gt = eng.trajectory(), eng.metrics(), lane["gt"]
     ate0, ate1 = ate_rmse(odo, gt), ate_rmse(traj, gt)
     lm = sum(r.iterations for r, _ in chunks)
@@ -2085,6 +2142,91 @@ def missing_k2_rows(results, runs, rates) -> list:
     return rows
 
 
+def icp_step_row(inp, phase, rates, what) -> dict:
+    """``icp_step`` at one launch shape, on the operands the main path gave
+    it there (``icp_snapshot``): the launch against its plain version
+    (``icp_step_torch``) from the same state (T within 1e-5 m and 1e-6 per
+    rotation entry, ``it``, ``converged`` and the flags equal, the errors
+    within 1e-6 relative), its device time (a CUDA graph of launches; the
+    ``apply`` mode's too), the plain version's time, and its bound: the
+    bytes a launch needs (each row's point, weight and match once, the
+    state) at the memory rate; its ~60 FP32 operations a row are further
+    below the card's rate. The JSON row, ``icp_step@LxN``."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops import icp_cuda
+    from lidar_slam_tpu_torch.ops.icp import icp_step_torch
+
+    mode, cur, mask, match = inp["mode"], inp["cur"], inp["mask"], inp["match"]
+    st_k, st_p = clone_state(inp["state"]), clone_state(inp["state"])
+    icp_cuda.launch(mode, st_k, cur, mask=mask, match=match)
+    icp_step_torch(mode, st_p, cur, mask=mask, match=match)
+    torch.cuda.synchronize()
+    gap_t = float((st_k.T[:, :3, 3] - st_p.T[:, :3, 3]).abs().max())
+    gap_r = float((st_k.T[:, :3, :3] - st_p.T[:, :3, :3]).abs().max())
+    check(gap_t <= 1e-5 and gap_r <= 1e-6,
+          f"icp_step {mode} ({what}): T differs from the plain version by "
+          f"{gap_t:.3e} m, {gap_r:.3e}")
+
+    def rel_gap(a, b):
+        # equal entries (a frozen lane's inf, an unused slot's 0) count 0
+        return float(torch.where(a == b, 0.0, (a - b).abs() / b.abs()).max())
+
+    rel = 0.0
+    if mode == "final":
+        rel = rel_gap(st_k.err, st_p.err)
+    if mode == "step":
+        for name in ("it", "converged", "flags"):
+            check(torch.equal(getattr(st_k, name), getattr(st_p, name)),
+                  f"icp_step {mode} ({what}): {name} differs from the plain "
+                  "version")
+        rel = max(rel_gap(st_k.prev_err, st_p.prev_err),
+                  rel_gap(st_k.hist, st_p.hist))
+    check(rel <= 1e-6, f"icp_step {mode} ({what}): errors differ from the "
+          f"plain version by {rel:.3e} relative")
+    st_g, st_a = clone_state(inp["state"]), clone_state(inp["state"])
+    out = torch.empty_like(cur)
+    ms = time_graph_ms(lambda: icp_cuda.launch(mode, st_g, cur, mask=mask,
+                                               match=match))
+    apply_ms = time_graph_ms(lambda: icp_cuda.launch("apply", st_a, out,
+                                                     src=cur))
+    st_q = clone_state(inp["state"])
+    pms = time_ms(lambda: icp_step_torch(mode, st_q, cur, mask=mask,
+                                         match=match), reps=5)
+    L, N = cur.shape[0], cur.shape[1]
+    pts, nrm, idx = match
+    row = 12 + 1 + 24 + (4 if idx is not None else 0)
+    b, by = bound_ms(0, L * N * row + _nbytes(inp["state"].T), rates)
+    route = "K2 index" if idx is not None else "K1 rows"
+    shape = f"{L}x{N}"
+    log(f"[kernels] icp_step {shape} ({what}; {mode}, {route}): T within "
+        f"{gap_t:.2e} m / {gap_r:.2e} of the plain version, errors within "
+        f"{rel:.2e}; kernel {ms:.4f} ms (apply {apply_ms:.4f} ms), bound "
+        f"{b:.6f} ms ({by}), plain {pms:.4f} ms")
+    return dict(
+        name=f"icp_step@{shape}", route="cuda",
+        source="lidar_slam_tpu_torch/csrc/icp_step.cu",
+        replaces=icp_cuda.ICP_STEP.replaces, max_abs_err=gap_t, ms=ms,
+        apply_ms=apply_ms, plain_ms=pms, bound_ms=b, bound_by=by,
+        library_ms=None, shape=shape, phase=phase, mode=mode, match=route,
+    )
+
+
+def icp_step_rows(results, runs, rates) -> list:
+    """An ``icp_step`` row for each of its launch shapes in ``runs``, on
+    the first operands the main path gave it there, counted in the first
+    phase that launched it."""
+    have = {r["name"] for r in results}
+    rows = []
+    for tag, run in runs.items():
+        for shape, inp in run["spy"].icp_inputs.items():
+            if f"icp_step@{shape}" in have:
+                continue
+            rows.append(icp_step_row(inp, tag, rates, f"{tag}'s own operands"))
+            have.add(f"icp_step@{shape}")
+    return rows
+
+
 def count_launches(results, runs) -> None:
     """Give each kernel row its launches by phase at the row's launch shape
     (``runs``: phase -> its ``launches`` and ``spy``); ``launches`` is the
@@ -2123,7 +2265,7 @@ def main() -> int:
     pkg = os.path.dirname(os.path.abspath(lidar_slam_tpu_torch.__file__))
     check(os.path.dirname(pkg) == HERE,
           f"run from the repository root (found the package at {pkg})")
-    from lidar_slam_tpu_torch.ops import knn_cuda
+    from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda
 
     dev = torch.device("cuda:0")
     smi = nvidia_smi()
@@ -2133,9 +2275,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     knn_cuda.load_library()
-    ptxas = [ln.strip() for ln in knn_cuda.build_log.splitlines()
+    icp_cuda.load_library()
+    ptxas = [ln.strip() for ln in
+             (knn_cuda.build_log + icp_cuda.build_log).splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     log(f"[build] {time.perf_counter() - t0:.2f} s -> {knn_cuda.library_path()}"
+        f", {icp_cuda.library_path()}"
         + "".join(f"\n  {ln}" for ln in ptxas))
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2203,6 +2348,7 @@ def main() -> int:
                                            "rings-batch-singles")},
             "sharded-dense": sharded, "dryrun": dry, **modes}
     results += missing_k2_rows(results, runs, card_rates(dev))
+    results += icp_step_rows(results, runs, card_rates(dev))
     count_launches(results, runs)
     print(json.dumps({"kernels": results}))
     print(smi)

@@ -25,13 +25,7 @@ import torch
 
 from ..config import ICPConfig, LoopClosureConfig, ScanContextConfig
 from ..ops import knn_cuda, se3
-from ..ops.icp import (
-    _gather_rows,
-    _plane_error,
-    icp_point_to_plane,
-    lane_compose,
-    solve_point_to_plane,
-)
+from ..ops.icp import _matcher, coarse_icp, icp_point_to_plane
 from ..ops.scan_context import (
     sc_distances,
     sc_distances_ring_prefiltered,
@@ -270,28 +264,13 @@ def detect_lanes(
             csrc = PointCloud(q_disp, query_mask).subsample(
                 cfg.verify_coarse_sample
             )
-            cw = csrc.mask.to(torch.float32)
-            cdenom = torch.clamp(torch.sum(cw, dim=-1), min=1.0)
-            c_pts, c_mask, c_w, c_denom = (rep(x) for x in
-                                           (csrc.points, csrc.mask, cw, cdenom))
+            c_src = PointCloud(rep(csrc.points), rep(csrc.mask))
 
         def coarse_phase(cl, mk, nr, T):
             """The ICP coarse warm start on the tranche's lanes, plus each
             lane's coarse-sample plane RMS at the resulting transform."""
-
-            def match(cur):
-                idx, _ = nn1_fn(cur, cl, mk)
-                return _gather_rows(cl, idx), _gather_rows(nr, idx)
-
-            for _ in range(vc):
-                cur = se3.apply(T, c_pts)
-                matched, nrm = match(cur)
-                delta = solve_point_to_plane(cur, matched, nrm, c_mask,
-                                             icp_cfg.solver_damping)
-                T = lane_compose(delta, T)
-            cur = se3.apply(T, c_pts)
-            matched, nrm = match(cur)
-            return T, _plane_error(cur, matched, nrm, c_w, c_denom)
+            return coarse_icp(T, c_src, _matcher(nn1_fn, cl, mk, nr), vc,
+                              icp_cfg.solver_damping)
 
         def verify(cl, mk, nr, T0, skip):
             res = icp_point_to_plane(

@@ -15,6 +15,14 @@ batch). Each iteration runs every lane's correspondence search in one call
 and then updates only the lanes still active, so a converged or inactive
 lane stays frozen exactly as under ``vmap``; the loop ends when no lane is
 active.
+
+On CUDA tensors the arithmetic of each iteration after the correspondence
+search is one launch of ``icp_step`` (``ops/icp_cuda.py``,
+``csrc/icp_step.cu``): the plane error, the convergence test, the 6 x 6
+solve, the SE(3) update and the bookkeeping of every lane, and the flag the
+host reads once an iteration. On CPU tensors the loop is the eager code of
+:func:`_icp_plain`; :func:`icp_step_torch` is the kernel's contract in the
+same eager code.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import torch
 from ..config import ICPConfig
 from ..types import ICPResult, PointCloud, strided_prefix_idx
 from ..utils import tracing
-from . import knn_cuda, se3
+from . import icp_cuda, knn_cuda, se3
 from .linalg import solve_psd_small
 from .normals import estimate_normals
 
@@ -106,6 +114,137 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
 
 
+def _matcher(nn1_fn, tgt_pts, tgt_mask, tgt_normals):
+    """``match(cur) -> (pts, nrm, idx)`` for the search backend ``nn1_fn``
+    (the protocols of :func:`icp_point_to_plane`), laid out once: K1's fused
+    form gives the matched rows themselves (``idx`` None); a backend that
+    returns indices gives the targets, their normals and the index (int32
+    on the card, for ``icp_step`` to gather)."""
+    prepare_match = getattr(nn1_fn, "prepare_match", None)
+    if prepare_match is not None:
+        match_q = prepare_match(tgt_pts, tgt_mask, tgt_normals)
+
+        def match(cur):
+            m, n, _ = match_q(cur)
+            return m, n, None
+
+        return match
+    prepare = getattr(nn1_fn, "prepare", None)
+    if prepare is not None:
+        nn_query = prepare(tgt_pts, tgt_mask)
+    else:
+        def nn_query(s):
+            return nn1_fn(s, tgt_pts, tgt_mask)
+
+    def match(cur):
+        idx, _ = nn_query(cur)
+        if idx.is_cuda and idx.dtype != torch.int32:
+            idx = idx.to(torch.int32)
+        return tgt_pts, tgt_normals, idx
+
+    return match
+
+
+def _rows(match):
+    """The matched points and normals of a ``match`` result."""
+    pts, nrm, idx = match
+    if idx is None:
+        return pts, nrm
+    return _gather_rows(pts, idx), _gather_rows(nrm, idx)
+
+
+def icp_step_torch(mode: str, st: icp_cuda.IcpState, cur: torch.Tensor,
+                   src=None, mask=None, match=None) -> None:
+    """Plain version of the ``icp_step`` kernel (``icp_cuda.launch``, same
+    arguments), in place on ``st``: ``apply`` writes ``cur = T src``;
+    ``coarse`` composes every lane with its Gauss-Newton step; ``step`` is
+    one iteration of :func:`_icp_plain`'s loop (recording a converging
+    lane's error as its final one too) and writes ``st.flags``; ``final``
+    writes ``st.err``: the plane error of the lanes that need the final
+    pass and the last iteration's of the others (of every lane, for a state
+    without a loop)."""
+    if mode == "apply":
+        cur.copy_(se3.apply(st.T, src))
+        return
+    matched, nrm = _rows(match)
+    if mode == "coarse":
+        delta = solve_point_to_plane(cur, matched, nrm, mask, st.damping)
+        st.T.copy_(lane_compose(delta, st.T))
+        return
+    w = mask.to(cur.dtype)
+    denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)
+    err = _plane_error(cur, matched, nrm, w, denom)
+    if st.it is None:
+        st.err.copy_(err)
+        return
+    slots = torch.arange(st.hist.shape[1], device=cur.device)[None, :]
+    if mode == "final":
+        need = ~(st.converged & (st.it > 0))
+        f = torch.where(need, err, st.prev_err)
+        st.err.copy_(f)
+        st.hist.copy_(torch.where(slots == st.it[:, None], f[:, None], st.hist))
+        return
+    conv = (err < st.min_error) | (torch.abs(st.prev_err - err) < st.tolerance)
+    delta = solve_point_to_plane(cur, matched, nrm, mask, st.damping)
+    a = (st.it < st.max_it) & ~st.converged
+    T_new = torch.where(conv[:, None, None], st.T, lane_compose(delta, st.T))
+    hist = torch.where(a[:, None] & (slots == st.it[:, None]), err[:, None],
+                       st.hist)
+    st.T.copy_(torch.where(a[:, None, None], T_new, st.T))
+    st.prev_err.copy_(torch.where(a, err, st.prev_err))
+    st.converged.copy_(torch.where(a, conv, st.converged))
+    st.it.add_(a.to(torch.int32))
+    st.hist.copy_(torch.where((a & conv)[:, None] & (slots == st.it[:, None]),
+                              err[:, None], hist))
+    st.flags.copy_(torch.stack([
+        ((st.it < st.max_it) & ~st.converged).any(),
+        (~(st.converged & (st.it > 0))).any()]).to(torch.int32))
+
+
+def _coarse_plain(T, src: PointCloud, match, iterations: int, damping: float):
+    for _ in range(iterations):
+        cur = se3.apply(T, src.points)
+        matched, nrm = _rows(match(cur))
+        delta = solve_point_to_plane(cur, matched, nrm, src.mask, damping)
+        T = lane_compose(delta, T)
+    return T
+
+
+def _coarse_fused(st, src: PointCloud, match, iterations: int, launch):
+    cur = torch.empty(src.points.shape, dtype=src.points.dtype,
+                      device=src.points.device)
+    for _ in range(iterations):
+        launch("apply", st, cur, src=src.points)
+        launch("coarse", st, cur, mask=src.mask, match=match(cur))
+    return cur
+
+
+def coarse_icp(T: torch.Tensor, src: PointCloud, match, iterations: int,
+               damping: float, launch=None):
+    """``iterations`` coarse Gauss-Newton passes from ``T`` (B, 4, 4) for
+    the B-lane source ``src``, every lane composing (no convergence test),
+    then each lane's plane RMS error at the result: ``(T, err)``. ``match``
+    as :func:`_matcher` makes it. On CUDA tensors a pass is two ``icp_step``
+    launches (``apply``, ``coarse``) around the search and the error two
+    more (``apply``, ``final``); on CPU tensors it is the eager code of the
+    JAX package's coarse body. ``launch``: run the fused path with this
+    launch (on CUDA tensors it is the kernel's)."""
+    if launch is None and not knn_cuda._is_cuda(src.points):
+        T = _coarse_plain(T, src, match, iterations, damping)
+        cur = se3.apply(T, src.points)
+        matched, nrm = _rows(match(cur))
+        w = src.mask.to(cur.dtype)
+        denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)
+        return T, _plane_error(cur, matched, nrm, w, denom)
+    launch = launch or icp_cuda.launch
+    st = icp_cuda.new_state(T.clone(memory_format=torch.contiguous_format),
+                            damping)
+    cur = _coarse_fused(st, src, match, iterations, launch)
+    launch("apply", st, cur, src=src.points)
+    launch("final", st, cur, mask=src.mask, match=match(cur))
+    return st.T, st.err
+
+
 def icp_point_to_plane(
     src: PointCloud,
     tgt: PointCloud,
@@ -135,12 +274,15 @@ def icp_point_to_plane(
     ``coarse``, an ``iter`` per loop pass ending at its ``icp.active``
     read, and ``final``.
     """
-    with tracing.span("icp", kernels=knn_cuda.KERNELS):
+    with tracing.span("icp", kernels=knn_cuda.KERNELS + icp_cuda.KERNELS):
         return _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn,
                     inactive)
 
 
-def _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn, inactive):
+def _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn, inactive,
+         launch=None):
+    """:func:`icp_point_to_plane`; ``launch``: run the fused loop with this
+    ``icp_step`` launch (on CUDA tensors it is the kernel's)."""
     batched = tgt.points.dim() == 3
     if not batched:
         tgt = PointCloud(tgt.points[None], tgt.mask[None])
@@ -163,25 +305,7 @@ def _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn, inactive):
                          torch.gather(tgt.mask, 1, t_idx))
         tgt_normals = _gather_rows(tgt_normals, t_idx)
 
-    prepare_match = getattr(nn1_fn, "prepare_match", None)
-    if prepare_match is not None:
-        match_q = prepare_match(tgt.points, tgt.mask, tgt_normals)
-
-        def match_query(cur):
-            m, n, _ = match_q(cur)
-            return m, n
-
-    else:
-        prepare = getattr(nn1_fn, "prepare", None)
-        if prepare is not None:
-            nn_query = prepare(tgt.points, tgt.mask)
-        else:
-            def nn_query(s):
-                return nn1_fn(s, tgt.points, tgt.mask)
-
-        def match_query(cur):
-            idx, _ = nn_query(cur)
-            return _gather_rows(tgt.points, idx), _gather_rows(tgt_normals, idx)
+    match = _matcher(nn1_fn, tgt.points, tgt.mask, tgt_normals)
 
     # Invalid source rows go to the far sentinel: they are weight-masked
     # everywhere, but the slab window must not see padding at the origin.
@@ -194,32 +318,43 @@ def _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn, inactive):
     if 0 < config.sample_points < src.points.shape[-2]:
         src = src.subsample(config.sample_points)
 
+    csrc = None
     if config.coarse_iterations > 0 and config.coarse_sample < src.points.shape[-2]:
-        with tracing.span("coarse"):
-            csrc = full_src.subsample(config.coarse_sample)
-            for _ in range(config.coarse_iterations):
-                cur = se3.apply(T, csrc.points)
-                matched, nrm = match_query(cur)
-                delta = solve_point_to_plane(
-                    cur, matched, nrm, csrc.mask, config.solver_damping
-                )
-                T = lane_compose(delta, T)
+        csrc = full_src.subsample(config.coarse_sample)
+    if inactive is None:
+        converged = torch.zeros((B,), dtype=torch.bool, device=device)
+    else:
+        converged = torch.as_tensor(inactive, device=device).reshape(B).clone()
+    if launch is not None or knn_cuda._is_cuda(tgt.points):
+        res = _icp_fused(src, csrc, match, T, converged, config,
+                         launch or icp_cuda.launch)
+    else:
+        res = _icp_plain(src, csrc, match, T, converged, config)
+    if not batched:
+        res = ICPResult(res.transformation[0], res.converged[0],
+                        res.num_iterations[0], res.error_history[0],
+                        res.final_error[0])
+    return res
 
+
+def _icp_plain(src, csrc, match, T, converged, config):
+    if csrc is not None:
+        with tracing.span("coarse"):
+            T = _coarse_plain(T, csrc, match, config.coarse_iterations,
+                              config.solver_damping)
+
+    B, dtype, device = T.shape[0], T.dtype, T.device
     w = src.mask.to(dtype)
     denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)
     max_it = config.max_iterations
 
     def correspondences(T):
         cur = se3.apply(T, src.points)
-        matched, nrm = match_query(cur)
+        matched, nrm = _rows(match(cur))
         return cur, matched, nrm
 
     it = torch.zeros((B,), dtype=torch.int32, device=device)
     prev_err = torch.full((B,), float("inf"), dtype=dtype, device=device)
-    if inactive is None:
-        converged = torch.zeros((B,), dtype=torch.bool, device=device)
-    else:
-        converged = torch.as_tensor(inactive, device=device).reshape(B).clone()
     hist = torch.zeros((B, max_it + 1), dtype=dtype, device=device)
     cur = matched = nrm = torch.zeros_like(src.points)
     slots = torch.arange(max_it + 1, device=device)
@@ -267,10 +402,44 @@ def _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn, inactive):
         hist = torch.where(slots[None, :] == it[:, None], final_err[:, None],
                            hist)
 
-    res = ICPResult(T, converged, it, hist, final_err)
-    if not batched:
-        res = ICPResult(T[0], converged[0], it[0], hist[0], final_err[0])
-    return res
+    return ICPResult(T, converged, it, hist, final_err)
+
+
+def _icp_fused(src, csrc, match, T, converged, config, launch):
+    """:func:`_icp_plain`'s loop with the arithmetic of each iteration in
+    one ``icp_step`` launch (``launch``): an iteration is the ``apply``
+    launch, the search and the ``step`` launch, then one read of the flag
+    that the step wrote. A converged exit's final error is its last
+    iteration's; the final pass runs for the lanes that need it."""
+    max_it = config.max_iterations
+    st = icp_cuda.new_state(T, config.solver_damping, converged, max_it,
+                            config.min_error, config.tolerance)
+    if csrc is not None:
+        with tracing.span("coarse"):
+            _coarse_fused(st, csrc, match, config.coarse_iterations, launch)
+
+    cur = torch.empty(src.points.shape, dtype=src.points.dtype,
+                      device=src.points.device)
+    active = ~st.converged if max_it > 0 else torch.zeros_like(st.converged)
+    go = tracing.host_read("icp.active", active.any())
+    ran = False
+    while go:
+        with tracing.span("iter"):
+            launch("apply", st, cur, src=src.points)
+            launch("step", st, cur, mask=src.mask, match=match(cur))
+            tracing.count("icp.fused_iters")
+            ran = True
+            go = tracing.host_read("icp.active", st.flags[0])
+
+    with tracing.span("final"):
+        need = st.flags[1] if ran else (~(st.converged & (st.it > 0))).any()
+        if tracing.host_read("icp.need", need):
+            launch("apply", st, cur, src=src.points)
+            launch("final", st, cur, mask=src.mask, match=match(cur))
+            final_err = st.err
+        else:
+            final_err = st.prev_err
+    return ICPResult(st.T, st.converged, st.it, st.hist, final_err)
 
 
 def icp_point_to_plane_auto(

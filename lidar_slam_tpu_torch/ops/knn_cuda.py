@@ -72,11 +72,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    """Where the shared library for the current kernel source lives."""
-    h = hashlib.sha256(KERNEL_SOURCE.read_bytes())
+def library_path(source: Path = KERNEL_SOURCE, stem: str = "libknn") -> Path:
+    """Where the shared library built from ``source`` lives (by default the
+    correspondence kernels'): keyed on the source and the flags."""
+    h = hashlib.sha256(source.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libknn_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def build(source: Path, stem: str) -> tuple[ctypes.CDLL, str]:
+    """Compile ``source`` with nvcc into ``build/kernels/`` (once per source
+    hash; temp name + ``os.replace``) and load it: ``(library, nvcc's
+    output)``, the output empty where the library was built before."""
+    so = library_path(source, stem)
+    log = ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            capture_output=True, text=True,
+        )
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so)), log
 
 
 def load_library() -> ctypes.CDLL:
@@ -84,19 +105,7 @@ def load_library() -> ctypes.CDLL:
     global _lib, build_log
     if _lib is not None:
         return _lib
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCE)],
-            capture_output=True, text=True,
-        )
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, build_log = build(KERNEL_SOURCE, "libknn")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lst_nn1.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
     lib.lst_nn1.restype = i
@@ -108,16 +117,20 @@ def load_library() -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One kernel of ``csrc/knn.cu``: its C entry point and launch count."""
+    """One hand-written kernel: its C entry point in the library that
+    ``library()`` loads (``csrc/knn.cu``'s by default) and its launch
+    count."""
 
-    def __init__(self, name: str, symbol: str, replaces: str):
+    def __init__(self, name: str, symbol: str, replaces: str,
+                 library=load_library):
         self.name = name
         self.symbol = symbol
         self.replaces = replaces
+        self.library = library
         self.launches = 0
 
     def launch(self, *args) -> None:
-        fn = getattr(load_library(), self.symbol)
+        fn = getattr(self.library(), self.symbol)
         with tracing.launching(self.name):
             rc = fn(*args)
         if rc != 0:

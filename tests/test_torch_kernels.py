@@ -380,3 +380,303 @@ def test_plane_error_rounds_the_same_for_any_lane_count(cuda):
             for b in range(B):
                 _exact(lanes[b], _plane_error(*(a[b : b + 1] for a in args),
                                               denom[b : b + 1])[0])
+
+
+# ---------------------------------------------------------------------------
+# icp_step (csrc/icp_step.cu) against its plain version, icp_step_torch. The
+# two sum the rows in another order (the kernel: 4 rows a thread, a warp
+# butterfly, the warps and then the blocks in order; the plain version:
+# cuBLAS products and torch sums), so the normal equations differ in the
+# last bits of their sums; every elementwise step rounds alike.
+# ---------------------------------------------------------------------------
+
+
+def _rodrigues(w):
+    th = np.linalg.norm(w)
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def _icp_step_case(seed, lanes, N, route, dev):
+    """``(src, mask, match, T0)``: each lane's sources, fixed correspondences
+    of a small known motion with 1 cm of noise (K1's packed rows read
+    through strides, or K2's int32 index into shuffled targets), a fifth of
+    the rows and a block of 300 masked, and a start near the identity."""
+    g = _gen(seed)
+    src = (g.normal(size=(lanes, N, 3)) * [20, 20, 3]).astype(np.float32)
+    nrm = g.normal(size=(lanes, N, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    tgt = np.empty_like(src)
+    for b in range(lanes):
+        R = _rodrigues(g.normal(0, 0.03, 3))
+        tgt[b] = src[b] @ R.T + g.normal(0, 0.4, 3) + g.normal(0, 0.01, (N, 3))
+    mask = g.uniform(size=(lanes, N)) > 0.2
+    mask[:, N // 3: N // 3 + 300] = False
+    T0 = np.tile(np.eye(4, dtype=np.float32), (lanes, 1, 1))
+    T0[:, :3, 3] = g.normal(0, 0.05, (lanes, 3))
+    s, m, T = (_dev(x, dev) for x in (src, mask, T0))
+    if route == "k1":
+        qn = np.zeros((lanes, N, 8), np.float32)
+        qn[..., 0:3], qn[..., 3:6] = tgt, nrm
+        q = _dev(qn, dev)
+        match = (q[..., 0:3], q[..., 3:6], None)
+    else:
+        M = N + 37
+        perm = np.stack([g.permutation(M)[:N] for _ in range(lanes)])
+        pts = (g.normal(size=(lanes, M, 3)) * 50).astype(np.float32)
+        tn = np.tile(np.float32([0, 0, 1]), (lanes, M, 1))
+        for b in range(lanes):
+            pts[b, perm[b]], tn[b, perm[b]] = tgt[b], nrm[b]
+        match = (_dev(pts, dev), _dev(tn.astype(np.float32), dev),
+                 _dev(perm.astype(np.int32), dev))
+    return s, m, match, T
+
+
+def _icp_states(T, lanes, mode, dev, max_it=6):
+    from lidar_slam_tpu_torch.ops import icp_cuda
+
+    def one():
+        conv = None
+        if mode != "coarse":
+            conv = torch.zeros(lanes, dtype=torch.bool, device=dev)
+            if lanes == 3:
+                conv[1] = True  # a lane inactive from the start stays frozen
+        return icp_cuda.new_state(T.clone(), 1e-9, conv, max_it, 1e-9, 1e-6)
+
+    return one(), one()
+
+
+def _close_T(a, b):
+    """Translations within 1e-5 m, rotations within 1e-6 (rad, per entry)."""
+    torch.testing.assert_close(a[..., :3, 3], b[..., :3, 3], rtol=0, atol=1e-5)
+    torch.testing.assert_close(a[..., :3, :3], b[..., :3, :3], rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["coarse", "step"])
+@pytest.mark.parametrize("route", ["k1", "k2"])
+@pytest.mark.parametrize("N", [512, 4096, 32768])
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_icp_step_kernel_matches_plain(cuda, lanes, N, route, mode):
+    """Six iterations, each from the same state on both sides (the plain
+    state is set to the kernel's after each comparison): ``apply`` within
+    3e-5 m of ``se3.apply`` (4 ulps at the 64-128 m of the largest
+    products: cuBLAS contracts them into FMAs, the kernel does not); T
+    within 1e-5 m / 1e-6 rad, ``converged`` and
+    ``it`` equal, the error history within 1e-6 relative, the loop flags
+    equal; then ``final``'s errors within 1e-6 relative."""
+    from lidar_slam_tpu_torch.ops import icp_cuda, se3
+    from lidar_slam_tpu_torch.ops.icp import icp_step_torch
+
+    src, mask, match, T = _icp_step_case(N + lanes, lanes, N, route, cuda)
+    st_k, st_p = _icp_states(T, lanes, mode, cuda)
+    cur = torch.empty_like(src)
+    for _ in range(6):
+        icp_cuda.launch("apply", st_k, cur, src=src)
+        torch.testing.assert_close(cur, se3.apply(st_k.T, src), rtol=0,
+                                   atol=3e-5)
+        before = icp_cuda.ICP_STEP.launches
+        icp_cuda.launch(mode, st_k, cur, mask=mask, match=match)
+        assert icp_cuda.ICP_STEP.launches == before + 1
+        icp_step_torch(mode, st_p, cur, mask=mask, match=match)
+        torch.cuda.synchronize()
+        _close_T(st_k.T, st_p.T)
+        if mode == "step":
+            _exact(st_k.it, st_p.it)
+            _exact(st_k.converged, st_p.converged)
+            _exact(st_k.flags, st_p.flags)
+            torch.testing.assert_close(st_k.hist, st_p.hist, rtol=1e-6, atol=0)
+            torch.testing.assert_close(st_k.prev_err, st_p.prev_err, rtol=1e-6,
+                                       atol=0)
+            for name in ("it", "prev_err", "converged", "hist"):
+                getattr(st_p, name).copy_(getattr(st_k, name))
+        st_p.T.copy_(st_k.T)
+    if mode == "step":
+        assert int(st_k.it.max()) > 1
+        if lanes == 3:
+            assert int(st_k.it[1]) == 0 and torch.equal(st_k.T[1], T[1])
+    icp_cuda.launch("apply", st_k, cur, src=src)
+    icp_cuda.launch("final", st_k, cur, mask=mask, match=match)
+    icp_step_torch("final", st_p, cur, mask=mask, match=match)
+    torch.testing.assert_close(st_k.err, st_p.err, rtol=1e-6, atol=0)
+    if mode == "step":
+        torch.testing.assert_close(st_k.hist, st_p.hist, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,route", [(512, "k2"), (4096, "k1"),
+                                     (32768, "k2")])
+def test_icp_step_lane_alone_equals_lane_in_batch(cuda, N, route):
+    """The kernel's reduction depends on the row count alone: a lane run
+    alone and the same lane in a 3-lane launch give bit-identical T,
+    ``it``, error history and final error."""
+    from lidar_slam_tpu_torch.ops import icp_cuda
+
+    src, mask, match, T = _icp_step_case(5, 3, N, route, cuda)
+
+    def run(sl):
+        conv = torch.zeros(sl.stop - sl.start, dtype=torch.bool, device=cuda)
+        st = icp_cuda.new_state(T[sl].clone(), 1e-9, conv, 6, 1e-9, 1e-6)
+        s, m = src[sl], mask[sl]
+        mt = tuple(None if x is None else x[sl] for x in match)
+        cur = torch.empty_like(s)
+        for _ in range(6):
+            icp_cuda.launch("apply", st, cur, src=s)
+            icp_cuda.launch("step", st, cur, mask=m, match=mt)
+        icp_cuda.launch("apply", st, cur, src=s)
+        icp_cuda.launch("final", st, cur, mask=m, match=mt)
+        return st
+
+    batch = run(slice(0, 3))
+    for b in range(3):
+        one = run(slice(b, b + 1))
+        for name in ("T", "it", "hist", "err"):
+            _exact(getattr(batch, name)[b], getattr(one, name)[0])
+
+
+@pytest.mark.gpu
+def test_icp_step_refuses_float64_and_other_devices(cuda):
+    from lidar_slam_tpu_torch.ops import icp_cuda
+
+    src, mask, match, T = _icp_step_case(1, 1, 512, "k2", cuda)
+    st, _ = _icp_states(T, 1, "step", cuda)
+    before = icp_cuda.ICP_STEP.launches
+    cur = torch.empty_like(src)
+    with pytest.raises(ValueError):
+        icp_cuda.launch("apply", st, cur.double(), src=src.double())
+    with pytest.raises(ValueError):
+        icp_cuda.launch("apply", st, cur, src=src.cpu())
+    with pytest.raises(ValueError):
+        icp_cuda.launch("step", st, cur, mask=mask.cpu(), match=match)
+    with pytest.raises(ValueError):
+        icp_cuda.launch("step", st, cur, mask=mask,
+                        match=(match[0], match[1], match[2].long()))
+    st64, _ = _icp_states(T.double(), 1, "step", cuda)
+    with pytest.raises(ValueError):
+        icp_cuda.launch("apply", st64, cur, src=src)
+    assert icp_cuda.ICP_STEP.launches == before
+
+
+def _drive_clouds(dev, n=21, rows=32768):
+    """The first ``n`` frames of a rendered drive (``utils.dataset``: the
+    corridor world, 65,536 raw points voxelized at 0.5 m to ``rows`` rows,
+    with the targets' adaptive normals, as on the engine's path: the
+    route of ``chip_smoke.py``)."""
+    from lidar_slam_tpu_torch.ops.normals import estimate_normals_adaptive
+    from lidar_slam_tpu_torch.types import PointCloud
+    from lidar_slam_tpu_torch.utils.dataset import (
+        ScanRenderer,
+        generate_trajectory,
+        generate_world,
+        route_half_for,
+    )
+    from lidar_slam_tpu_torch.utils.native import voxel_downsample_host
+
+    half = route_half_for(500)
+    renderer = ScanRenderer(generate_world(0, route_half=half, corridor=60.0))
+    gt = generate_trajectory(500, half=half)
+    g = _gen(0)
+    clouds = []
+    for i in range(n):
+        v = voxel_downsample_host(renderer.render(gt[i], g, max_points=65536),
+                                  0.5, rows)
+        pts = np.zeros((rows, 3), np.float32)
+        pts[: len(v)] = v
+        p = _dev(pts, dev)
+        m = _dev(np.arange(rows) < len(v), dev)
+        nrm = estimate_normals_adaptive(p, m, r_min=1.2, window=4096,
+                                        probe_stride=2)
+        clouds.append((PointCloud(p, m), nrm))
+    return clouds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fast", "fidelity"])
+def test_icp_on_card_matches_plain_over_a_drive(cuda, mode):
+    """Each of a drive's first 20 frames registered onto its predecessor on
+    the card: ``icp_point_to_plane`` (``icp_step``) against the same call
+    with the plain step (``icp_step_torch``), fast mode's K1 route (4,096
+    sources, warm start from the previous delta) and fidelity's K2 route
+    (32,768 x 32,768, 50 iterations). The correspondence kernels are exact
+    on both sides, so the runs part only by the sums' order in each
+    iteration: on every frame where the two take the same iterations and
+    agree on convergence (18 of 20 at least), translations within 1e-4 m
+    and rotations within 1e-5 per entry; elsewhere a stop on an error
+    change near the tolerance came an iteration apart, and the two lie a
+    last, small Gauss-Newton step apart: 1e-2 m, 1e-3."""
+    from lidar_slam_tpu_torch.config import apply_mode, slice_config
+    from lidar_slam_tpu_torch.models.pipeline import resolve_nn1
+    from lidar_slam_tpu_torch.ops import icp, icp_cuda
+
+    cfg = apply_mode(slice_config(), mode)
+    nn1_fn = resolve_nn1(cfg)
+    clouds = _drive_clouds(cuda)
+    before = icp_cuda.ICP_STEP.launches
+    same, delta = 0, None
+    for i in range(1, len(clouds)):
+        (src, _), (tgt, nrm) = clouds[i], clouds[i - 1]
+        init = delta if cfg.icp.warm_start else None
+        got = icp._icp(src, tgt, nrm, cfg.icp, init, nn1_fn, None)
+        ref = icp._icp(src, tgt, nrm, cfg.icp, init, nn1_fn, None,
+                       launch=icp.icp_step_torch)
+        alike = (int(got.num_iterations) == int(ref.num_iterations)
+                 and bool(got.converged) == bool(ref.converged))
+        _close_T_drive(got.transformation, ref.transformation,
+                       1.0 if alike else 100.0)
+        same += alike
+        delta = got.transformation
+    assert icp_cuda.ICP_STEP.launches > before
+    assert same >= 18
+
+
+def _close_T_drive(a, b, scale):
+    torch.testing.assert_close(a[:3, 3], b[:3, 3], rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(a[:3, :3], b[:3, :3], rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+def test_fused_iters_count_every_iteration_on_card(cuda):
+    """The engine on the card with tracing on: every ICP loop pass is one
+    ``icp_step`` iteration, so ``icp.fused_iters`` equals the ``iter``
+    spans, each odometry ICP's ``iter`` spans its iteration count, and
+    every ``icp`` span launched ``icp_step``."""
+    from lidar_slam_tpu_torch.config import fast_mode, tiny_config
+    from lidar_slam_tpu_torch.models.pipeline import SlamEngine
+    from lidar_slam_tpu_torch.utils.dataset import (
+        generate_trajectory,
+        generate_world,
+        render_scan,
+        route_half_for,
+    )
+    from lidar_slam_tpu_torch.utils.native import voxel_downsample_host
+
+    n = 40
+    half = route_half_for(n)
+    world = generate_world(0, route_half=half)
+    gt = generate_trajectory(n, half=half)
+    g = np.random.default_rng(0)
+    scans = [voxel_downsample_host(render_scan(world, gt[i], g, max_range=15.0,
+                                               max_points=20000), 0.5, 2048)
+             for i in range(n)]
+    cfg = fast_mode(tiny_config(
+        max_raw_points=2048, max_points=2048, lc_cloud_points=0, max_frames=48,
+        max_loop_factors=16,
+    )).replace(host_voxelize=True, slab_window=1024, normal_window=1024)
+    eng = SlamEngine(cfg, cuda, trace=True)
+    eng.reset()
+    for s in scans:
+        eng.push_scan(s)
+    m = eng.metrics()
+    spans, counters = m["trace"]["spans"], m["trace"]["counters"]
+    iters = [s for s in spans if s["name"] == "iter"]
+    assert counters["icp.fused_iters"] == len(iters) > 0
+    for i, s in enumerate(spans):
+        if s["name"] != "icp":
+            continue
+        assert s["launches"]["icp_step"] > 0
+        if spans[s["parent"]]["name"] == "step":
+            mine = sum(1 for t in iters if t["parent"] == i)
+            assert mine == m["icp_iters"][s["frame"]]
+    assert m["loop_count"] >= 1

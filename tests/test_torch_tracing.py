@@ -145,7 +145,7 @@ def test_icp_iterations_and_host_syncs(runs):
                  if spans[j]["name"] == "sync"]
         assert sites.count("icp.active") == m["icp_iters"][f] + 1, f
         assert sites.count("icp.need") == 1
-        assert set(s["launches"]) == {"match_slab", "nn1"}
+        assert set(s["launches"]) == {"match_slab", "nn1", "icp_step"}
     # every sync span is counted under its site, and only those
     sites = [s["site"] for s in spans if s["name"] == "sync"]
     assert counters == {f"host_syncs.{k}": sites.count(k) for k in set(sites)}

@@ -10,7 +10,9 @@ its limit in the cell's workload file:
   widest coordinate gap (1e30 where the occupied rows differ);
 - ``normal_p99_deg``: the sampled frames' normals against the reference's
   on the reference's cloud, the 99th percentile of the angle over valid
-  rows (sign ignored);
+  rows (sign ignored). The reference's normals follow the configuration's
+  ``normal_method`` (``NORMAL_STAGES``), as the program's do, and feed
+  its odometry and verification too;
 - ``odom_frames_off``: of ``ODOMETRY_FRAMES`` frames sampled from the
   seed, those whose odometry factor parts from the reference's: the delta
   by more than ``odom_frame_gap_m`` (the widest displacement of a cloud
@@ -56,7 +58,8 @@ import torch
 
 from .reference import loops as rl
 from .reference.config import namespace
-from .reference.normals import adaptive_normals, angle_deg
+from .reference.normals import adaptive_normals, angle_deg, radius_normals
+from .reference.normals_knn import knn_normals
 from .reference.occupancy import rebuild
 from .reference.pose_graph import Graph, optimum
 from .reference.prec import FP32, TF32
@@ -72,6 +75,8 @@ NUMBERS = ("cloud_gap_m", "normal_p99_deg", "odom_frames_off", "loop_mismatch",
 PER_ITEM = {"odom_frames_off": ("odom_frame_gap_m", "odom_frame_scale_gap"),
             "loops_off": ("loop_frame_gap_m",)}     # a count -> its items' limits
 LIMITS = NUMBERS + tuple(k for v in PER_ITEM.values() for k in v)
+NORMAL_STAGES = {"adaptive": adaptive_normals, "radius": radius_normals,
+                 "knn": knn_normals}     # the configuration's normal_method
 
 
 @dataclass
@@ -148,7 +153,7 @@ class Reference:
         if p is FP32 and f in self._normals:
             return self._normals[f]
         pts, mask = self.clouds
-        n = adaptive_normals(pts[f], mask[f], self.cfg, p)
+        n = NORMAL_STAGES[self.cfg.normal_method](pts[f], mask[f], self.cfg, p)
         if p is FP32:
             self._normals[f] = n
         return n
@@ -180,8 +185,13 @@ def judge(cell, raw: list, out: ProgramOutputs, seed: int, device,
     """``(correct, [(name, value, limit), ...])`` for one run; ``details``,
     where given, receives each sampled frame's and loop's gaps."""
     cfg = namespace(cell.config["slam_config"])
-    if cfg.normal_method != "adaptive" or cfg.host_normals:
-        raise NotImplementedError("the reference has adaptive device normals only")
+    if cfg.host_normals:
+        raise NotImplementedError(
+            "the reference has no stage for the host's normals (host_normals)")
+    if cfg.normal_method not in NORMAL_STAGES:
+        raise NotImplementedError(
+            f"the reference has no normal stage for normal_method="
+            f"{cfg.normal_method!r} (it has {', '.join(NORMAL_STAGES)})")
     ref = Reference(cfg, raw, device)
     n = ref.n
     rng = np.random.default_rng([int(seed) % (1 << 63), 0x51AB])

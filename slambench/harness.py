@@ -101,6 +101,10 @@ def p95(values: list) -> float:
 
 
 def breakdown(trace, win) -> dict:
+    """The ten device operations that took most time, and the ten longest
+    idle gaps, each named by the benchmark span in which the host launched
+    the operation that ended it (by the gap's start where no runtime call
+    is known: the device's clock drifts against the host's)."""
     from .trace import idle_gaps, op_seconds_by_name, span_of
 
     ops = sorted(op_seconds_by_name(trace.ops).items(), key=lambda x: -x[1])[:10]
@@ -109,9 +113,12 @@ def breakdown(trace, win) -> dict:
     t0 = int(trace.t0 * 1e9) + trace.offset_ns
     t1 = int(trace.t1 * 1e9) + trace.offset_ns
     gaps = sorted(idle_gaps(trace.ops, t0, t1), key=lambda g: g[0] - g[1])[:10]
+    launched = dict(zip((a for _, a, _ in reversed(trace.ops)),
+                        reversed(trace.launch_ns or [None] * len(trace.ops))))
     named = []
     for a, b in gaps:
-        s = span_of(spans, trace.offset_ns, a)
+        at = launched.get(b)
+        s = span_of(spans, trace.offset_ns, a if at is None else at)
         where = "between-spans" if s is None else (
             s.name if s.frame < 0 else f"{s.name}@{s.frame}")
         named.append([where, (b - a) / 1e9])

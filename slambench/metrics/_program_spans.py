@@ -8,18 +8,20 @@ copies ``SlamEngine.metrics()``, whose ``"trace"`` entry holds them, into
 ``Window.profiled_counters`` after the traced drive. Span times are
 ``perf_counter_ns``; ``DeviceTrace.offset_ns`` maps them onto the
 profiler's clock. A device operation is placed in the innermost span open
-at its start.
+when the host launched it: the start of its CUDA runtime call
+(``DeviceTrace.launch_ns``), which the profiler times on the host's own
+clock.
 
-The profiler's device timestamps drift against its host clock: on the
-H100, by up to 0.05 ms within a few seconds and then a step at each
-resynchronisation, once 0.6 ms, over one 12-s drive. So the offset is
-corrected by the kernels' launches: the program wraps each K1 and K2
-launch call in a ``launch`` span, the i-th K1 (K2) operation on the device
-belongs to the i-th K1 (K2) launch, and it cannot start before that
-launch did. Each such pair bounds the clock's error from above; an
-operation takes the least bound among the five anchors nearest to it on
-either side. Where the counts of launches and operations differ, nothing
-is placed.
+The device's timestamps cannot place it: they drift against the host's
+clock, on the H100 by up to 22 ms within one drive, with steps of 0.3 to
+3 ms at a resynchronisation. An operation with no runtime call (hand-made
+traces) is placed by its device start instead, corrected by the kernels'
+launches: the program wraps each K1 and K2 launch call in a ``launch``
+span, the i-th K1 (K2) operation on the device belongs to the i-th K1 (K2)
+launch, and it cannot start before that launch did. Each such pair bounds
+the clock's error from above; an operation takes the least bound among the
+five anchors nearest to it on either side. Where such operations are
+left and the counts of launches and operations differ, nothing is placed.
 
 The placement is then checked: in every ``icp`` span, the K1
 (``match_slab``) and K2 (``nn1_kernel``) operations placed there (or in
@@ -29,7 +31,7 @@ counters). Readers that place operations give nothing where it fails."""
 from __future__ import annotations
 
 import sys
-from bisect import bisect_right
+from bisect import bisect_left, bisect_right
 from collections import Counter, defaultdict
 from dataclasses import dataclass
 
@@ -110,9 +112,10 @@ def launch_anchors(spans: list, ops: list, offset_ns: int) -> list | None:
 class Placement:
     spans: list
     ops: list
-    where: list            # innermost span of each operation's start
+    where: list            # innermost span open at each operation's launch
     anchors: list          # launch_anchors()
     bounds: list           # each anchor's least bound in its window
+    launch_ns: list        # each operation's launch (profiler clock) or None
 
     def to_host(self, t_dev: int, offset_ns: int) -> int:
         """A device timestamp on the host's clock."""
@@ -122,23 +125,46 @@ class Placement:
         near = [self.bounds[j] for j in (k - 1, k) if 0 <= j < len(self.bounds)]
         return t_dev - offset_ns - min(near)
 
+    def op_host(self, i: int, offset_ns: int) -> int:
+        """Operation ``i``'s launch on the host's clock (its corrected
+        device start where it has no runtime call)."""
+        t = self.launch_ns[i]
+        return t - offset_ns if t is not None else \
+            self.to_host(self.ops[i][1], offset_ns)
+
+    def gap_host(self, end_ns: int, offset_ns: int) -> int:
+        """An idle gap that ends at device time ``end_ns``, on the host's
+        clock: the launch of the operation that ends it, which the host
+        made as the device waited (the corrected device time where there
+        is none)."""
+        k = bisect_left(self.ops, end_ns, key=lambda op: op[1])
+        if k < len(self.ops) and self.ops[k][1] == end_ns:
+            return self.op_host(k, offset_ns)
+        return self.to_host(end_ns, offset_ns)
+
 
 def placement(run) -> Placement | None:
     """The operations of the traced drive placed in the program's spans;
-    None without program spans or device operations, or where the launches
-    cannot be paired with operations."""
+    None without program spans or device operations, or where operations
+    without a runtime call are left and the launches cannot be paired with
+    the K1/K2 operations."""
     spans = program_spans(run)
     ops = run.trace.ops if run.trace is not None else None
     if spans is None or not ops:
         return None
     off = run.trace.offset_ns
+    launched = list(getattr(run.trace, "launch_ns", None) or ())
+    if len(launched) != len(ops):
+        launched = [None] * len(ops)
     anchors = launch_anchors(spans, ops, off)
     if anchors is None:
-        return None
+        if None in launched:
+            return None
+        anchors = []
     u = [b for _, b in anchors]
     bounds = [min(u[max(0, k - WINDOW):k + WINDOW + 1]) for k in range(len(u))]
-    p = Placement(spans, ops, [], anchors, bounds)
-    p.where = place([p.to_host(a, off) for _, a, _ in ops], spans)
+    p = Placement(spans, ops, [], anchors, bounds, launched)
+    p.where = place([p.op_host(i, off) for i in range(len(ops))], spans)
     return p
 
 
@@ -210,9 +236,10 @@ def device_ms_per_frame(run, name: str, parent: str):
 def stage_report(run) -> None:
     """To stderr: the launch anchors' error bounds and the K1/K2 check;
     then each stage's device busy ms a scan (the union of the operations
-    placed in it) and the idle ms a scan that began while the host was in
-    it, a stage being a span's path below its frame's root (``step/icp``,
-    ``tick/verify``; the root's own name for finalize and reset)."""
+    placed in it) and the idle ms a scan that the host ended in it (by the
+    launch that ended the gap, :meth:`Placement.gap_host`), a stage being a
+    span's path below its frame's root (``step/icp``, ``tick/verify``; the
+    root's own name for finalize and reset)."""
     p = placement(run)
     if p is None:
         return
@@ -245,7 +272,7 @@ def stage_report(run) -> None:
     t0 = int(run.trace.t0 * 1e9) + off
     t1 = int(run.trace.t1 * 1e9) + off
     gaps = idle_gaps(p.ops, t0, t1)
-    at = place([p.to_host(a, off) for a, _ in gaps], spans)
+    at = place([p.gap_host(b, off) for _, b in gaps], spans)
     idle = defaultdict(float)
     for (a, b), w in zip(gaps, at):
         idle[names[w] if w >= 0 else "outside"] += (b - a) / 1e6 / scans

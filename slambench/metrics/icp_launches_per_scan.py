@@ -1,8 +1,8 @@
 """Odometry ICP (``ops/icp.py``): kernels the device ran (copies and sets
-left out, as ``launches_per_scan``) whose start falls in an ``icp`` span
-under ``step``, over the odometry frames of the traced drive. Nothing
-without program spans, or where the K1/K2 placement check fails
-(``_program_spans.clocks_agree``)."""
+left out, as ``launches_per_scan``) that the host launched inside an
+``icp`` span under ``step``, over the odometry frames of the traced
+drive. Nothing without program spans, or where the K1/K2 placement check
+fails (``_program_spans.checked_placement``)."""
 
 from slambench.metrics._program_spans import launches_per_frame
 

@@ -4,9 +4,12 @@ the traced drive's frames without a loop tick (where K2 runs for odometry
 alone; a tick frame's verify launches are not counted by the engine).
 Work: each such frame's ICP launches (iterations, plus the final pass when
 it did not converge) x valid sources x valid targets (``frame_npts``);
-time: K2's device time inside those frames' spans. Nothing where odometry
-does not run K2, or where the launches found in those spans are not the
-launches the counters give (the trace could not be placed on the spans)."""
+time: K2's device time of the launches made inside those frames' spans
+(an operation is placed by its runtime call, ``DeviceTrace.launch_ns``;
+by the middle of its device interval where it has none). Nothing where
+odometry does not run K2, or where the launches found in those spans are
+not the launches the counters give (the trace could not be placed on the
+spans)."""
 
 from slambench.roofline import bound_s, k2_launch
 from slambench.trace import span_of
@@ -24,10 +27,13 @@ def read(run):
                    run.window.spans_named("push_scan.tick", profiled=True),
                    key=lambda s: s.t0)
     found, dev_ns = 0, 0
-    for name, a, b in tr.ops:
+    launched = list(getattr(tr, "launch_ns", None) or ())
+    if len(launched) != len(tr.ops):
+        launched = [None] * len(tr.ops)
+    for (name, a, b), at in zip(tr.ops, launched):
         if "nn1_kernel" not in name:
             continue
-        s = span_of(spans, tr.offset_ns, (a + b) // 2)
+        s = span_of(spans, tr.offset_ns, (a + b) // 2 if at is None else at)
         if s is not None and s.name == "push_scan.step" and s.frame > 0:
             dev_ns += b - a
             found += 1

@@ -1,6 +1,7 @@
-"""Count-targeted radius normals over x-slab windows of an x-sorted cloud
-(the configuration's ``normal_method="adaptive"`` with ``normal_window``,
-``normal_probe_stride`` and ``normal_stride``), written plainly:
+"""Radius normals over x-slab windows of an x-sorted cloud, written
+plainly: count-targeted radii (the configuration's ``normal_method=
+"adaptive"`` with ``normal_window``, ``normal_probe_stride`` and
+``normal_stride``), or one radius (``"radius"``, step 3 alone):
 
 1. for every ``probe_stride``-th row, the neighbours within the two probe
    radii among the ``window`` rows that start at the first row whose
@@ -100,27 +101,62 @@ def _radius_normals(pts_m, mask, radius, window, p: Precision, ts=256):
         covs.append(s2 / c[:, None, None] - mean[:, :, None] * mean[:, None, :])
         cnts.append(cnt.reshape(-1))
     cov, cnt = torch.cat(covs), torch.cat(cnts)
+    return least_eigvec_up(cov, (cnt < 3.0) | ~mask)
+
+
+def least_eigvec_up(cov: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
+    """The unit eigenvector of each (M, 3, 3) covariance's least eigenvalue,
+    turned to z >= 0; (0, 0, 1) where ``bad``."""
     # LAPACK's batched 3 x 3 eigh on the host (cuSOLVER's batched syevj
     # refuses a batch of this size)
     _, vecs = torch.linalg.eigh(cov.cpu())
     n = vecs[..., :, 0].to(cov.device)
     n = torch.where(n[:, 2:3] < 0, -n, n)
     up = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
-    bad = (cnt < 3.0) | ~mask
     return torch.where(bad[:, None], up.expand_as(n), n)
+
+
+def _strided(stage, pts, mask, st):
+    """``stage(pts, mask)`` on every ``st``-th row, each normal repeated
+    over the skipped rows; (0, 0, 1) on invalid rows."""
+    if st <= 1:
+        return stage(pts, mask)
+    n = torch.repeat_interleave(stage(pts[::st], mask[::st]), st, 0)[: pts.shape[0]]
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
+    return torch.where(mask[:, None], n, up.expand_as(n))
 
 
 def adaptive_normals(pts: torch.Tensor, mask: torch.Tensor, cfg,
                      p: Precision = FP32) -> torch.Tensor:
     """Normals of a padded (N, 3) x-sorted cloud under ``cfg`` (the
-    configuration's ``SlamConfig``)."""
+    configuration's ``SlamConfig``), ``normal_method="adaptive"``."""
     st = cfg.normal_stride
-    if st > 1:
-        sub = _adaptive(pts[::st], mask[::st], cfg, max(cfg.normal_k_target // st, 4), p)
-        n = torch.repeat_interleave(sub, st, 0)[: pts.shape[0]]
-        up = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
-        return torch.where(mask[:, None], n, up.expand_as(n))
-    return _adaptive(pts, mask, cfg, cfg.normal_k_target, p)
+    k = max(cfg.normal_k_target // st, 4) if st > 1 else cfg.normal_k_target
+    return _strided(lambda q, m: _adaptive(q, m, cfg, k, p), pts, mask, st)
+
+
+def normal_radius(cfg) -> float:
+    """The one radius of ``"radius"``, the least of ``"adaptive"``."""
+    return cfg.normal_radius if cfg.normal_radius > 0 else 2.4 * cfg.voxel_size
+
+
+def radius_normals(pts: torch.Tensor, mask: torch.Tensor, cfg,
+                   p: Precision = FP32) -> torch.Tensor:
+    """Normals of a padded (N, 3) x-sorted cloud under ``cfg``,
+    ``normal_method="radius"``: the moment pass of ``"adaptive"`` with
+    every row at ``normal_radius(cfg)``, over ``normal_window``, with
+    ``normal_stride``."""
+    return _strided(lambda q, m: _one_radius(q, m, cfg, p), pts, mask,
+                    cfg.normal_stride)
+
+
+def _one_radius(pts, mask, cfg, p):
+    N = pts.shape[0]
+    pts = p.inp(pts)
+    pts_m = torch.where(mask[:, None], pts, torch.full_like(pts, SENTINEL))
+    r = torch.full((N,), normal_radius(cfg), dtype=pts.dtype, device=pts.device)
+    window = N if cfg.normal_window <= 0 else cfg.normal_window
+    return _radius_normals(pts_m, mask, r, window, p)
 
 
 def _adaptive(pts, mask, cfg, k, p):
@@ -136,7 +172,7 @@ def _adaptive(pts, mask, cfg, k, p):
     f = dict(dtype=pts.dtype, device=pts.device)
     dim = torch.clamp(torch.log(c_hi / c_lo) / torch.log(torch.tensor(r_hi / r_lo, **f)),
                       0.7, 2.5)
-    r_min = cfg.normal_radius if cfg.normal_radius > 0 else 2.4 * cfg.voxel_size
+    r_min = normal_radius(cfg)
     r = torch.clamp(r_hi * (torch.full_like(c_hi, float(k)) / c_hi)
                     ** (torch.ones_like(dim) / dim), r_min, cfg.normal_r_max)
     if ps > 1:

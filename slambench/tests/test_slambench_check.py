@@ -4,7 +4,8 @@ false for the control (the reference one precision below) and for each
 fault planted in the timed path: a step that leaves the state unchanged,
 half of each scan left out, an odometry answer altered where it is
 produced (on every frame, or on every fourth), an odometry factor's scale
-altered. On the GPU the same comparison decides ``correct`` at the cells'
+altered, the k-NN normals of a ``normal_method="knn"`` configuration
+taken over 8 neighbours where it states 20. On the GPU the same comparison decides ``correct`` at the cells'
 own sizes (``calibrate.py`` reads the control there)."""
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ def _run(tmp_path, config="tiny-fast", frames=32):
     return harness.run_cell(cell, SEED, 0.5, False, "cpu", time.time())
 
 
-@pytest.mark.parametrize("config,frames", [("tiny-fast", 32), ("tiny-fidelity", 16)])
+@pytest.mark.parametrize("config,frames", [("tiny-fast", 32), ("tiny-fidelity", 16),
+                                           ("tiny-upstream", 16)])
 def test_slambench_reference_holds_the_port(tmp_path, config, frames):
     torch.set_num_threads(4)
     res = _run(tmp_path, config, frames)
@@ -71,6 +73,12 @@ def _altered(orig, every=1):
     return step
 
 
+def _knn_k8(orig):
+    def normals(pts, mask, k=20, chunk=2048):
+        return orig(pts, mask, k=8, chunk=chunk)
+    return normals
+
+
 def _rescaled(orig):
     def step(state, config, raw_pts, raw_count, frame, nn1_fn, *a, **k):
         out = orig(state, config, raw_pts, raw_count, frame, nn1_fn, *a, **k)
@@ -80,11 +88,16 @@ def _rescaled(orig):
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half_scan", "altered",
-                                   "altered_every_4th", "rescaled"])
+                                   "altered_every_4th", "rescaled", "knn_k8"])
 def test_slambench_fault_is_not_correct(tmp_path, monkeypatch, fault):
     torch.set_num_threads(4)
+    config, frames = "tiny-fast", 32
     if fault == "unchanged":
         monkeypatch.setattr(pipeline, "step", _unchanged)
+    elif fault == "knn_k8":
+        monkeypatch.setattr(pipeline, "estimate_normals",
+                            _knn_k8(pipeline.estimate_normals))
+        config, frames = "tiny-upstream", 16
     elif fault == "half_scan":
         monkeypatch.setattr(pipeline, "prep_cloud", _half_scan(pipeline.prep_cloud))
     elif fault == "rescaled":
@@ -92,5 +105,5 @@ def test_slambench_fault_is_not_correct(tmp_path, monkeypatch, fault):
     else:
         every = 4 if fault == "altered_every_4th" else 1
         monkeypatch.setattr(pipeline, "step", _altered(pipeline.step, every))
-    res = _run(tmp_path)
+    res = _run(tmp_path, config, frames)
     assert not res["correct"], res["checks"]

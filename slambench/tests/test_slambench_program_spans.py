@@ -1,11 +1,11 @@
 """The readers of the port's own spans (``metrics/_program_spans.py`` and
 the five metrics that use it): on hand-made spans and device operations,
-placement in the innermost span open at an operation's start, the device
-clock's error taken out by the kernels' launch spans, the K1/K2 check that
-returns nothing where placement and launch counters disagree, and nothing
-without program spans; on the card, a short fast drive under
-``DeviceTrace`` whose K1 operations land in the ``icp`` spans that counted
-them."""
+placement in the innermost span open at an operation's launch (its runtime
+call) or, without one, at its start with the device clock's error taken
+out by the kernels' launch spans, the K1/K2 check that returns nothing
+where placement and launch counters disagree, and nothing without program
+spans; on the card, a short fast drive under ``DeviceTrace`` whose K1
+operations land in the ``icp`` spans that counted them."""
 
 from __future__ import annotations
 
@@ -69,14 +69,23 @@ def _ops():
     return [(n, a + OFFSET, b + OFFSET) for n, a, b in at]
 
 
+def _launches():
+    """The host's runtime call of each of :func:`_ops`, on the profiler's
+    clock: before the operation's start, each K1 and K2 inside its launch
+    span."""
+    at = [25, 203, 221, 228, 262, 299, 315, 316, 416, 605]
+    return [t + OFFSET for t in at]
+
+
 def _shift(ops, ns):
     return [(n, a + ns, b + ns) for n, a, b in ops]
 
 
-def _run(spans, ops, trace_entry=True):
+def _run(spans, ops, trace_entry=True, launch_ns=None):
     counters = {"trace": {"spans": spans, "counters": {}}} if trace_entry else {}
     window = SimpleNamespace(profiled_counters=counters)
-    trace = SimpleNamespace(ops=ops, offset_ns=OFFSET, t0=0.0, t1=1e-6)
+    trace = SimpleNamespace(ops=ops, offset_ns=OFFSET, t0=0.0, t1=1e-6,
+                            launch_ns=launch_ns or [])
     return SimpleNamespace(window=window, trace=trace)
 
 
@@ -103,6 +112,52 @@ def test_device_clock_error_is_taken_out():
         assert raw[3:5] != [20, 21]
         assert P.placement(run).where == [4, 7, 9, 20, 21, 9, 14, 14, 16, 17]
         assert {k: readers[k].read(run) for k in NEW} == want
+
+
+@pytest.mark.parametrize("step", [(0, 0), (50, 50), (-2_000, 1_000)])
+def test_launches_place_operations_on_any_device_clock(step):
+    """With each operation's runtime call known, an operation lands in the
+    span open at its launch, whatever the device clock does: late, or
+    stepping ahead halfway through the drive by more than a span lasts,
+    which the launch anchors cannot take out; the readers read what they
+    read on the device's true clock."""
+    readers = load_readers()
+    want = {k: readers[k].read(_run(_spans(), _ops())) for k in NEW}
+    early, late = step
+    ops = _shift(_ops()[:5], early) + _shift(_ops()[5:], late)
+    run = _run(_spans(), ops, launch_ns=_launches())
+    p = P.placement(run)
+    # K1 and K2 land in their launch calls' spans
+    assert p.where == [4, 7, 9, 20, 21, 9, 14, 14, 19, 17]
+    assert P.icp_kernel_counts(p)[2] == 0
+    assert {k: readers[k].read(run) for k in NEW} == want
+    # an idle gap is the host's where it launched the operation that ended it
+    assert p.gap_host(ops[3][1], OFFSET) == 228
+
+
+def test_launches_place_operations_without_launch_spans():
+    """Where every operation has its runtime call, a K1 launch call that
+    the program did not record (no anchor to pair) takes nothing away."""
+    readers = load_readers()
+    want = {k: readers[k].read(_run(_spans(), _ops())) for k in NEW}
+    run = _run(_spans(k1_launch_spans=1), _ops(), launch_ns=_launches())
+    assert P.placement(run).anchors == []
+    assert {k: readers[k].read(run) for k in NEW} == want
+    # one operation without its call: the anchors are needed, and fail
+    part = _launches()[:-1] + [None]
+    assert P.placement(_run(_spans(k1_launch_spans=1), _ops(),
+                            launch_ns=part)) is None
+
+
+def test_device_trace_pairs_operations_with_runtime_calls():
+    """``device_ops`` on the host profiler (no card): operations sorted by
+    start, and a launch beside each, None where none is known."""
+    from slambench.trace import DeviceTrace
+
+    with DeviceTrace(activities=("cpu",)) as tr:
+        torch.ones(64).add(1).sum()
+    assert tr.ops and [a for _, a, _ in tr.ops] == sorted(a for _, a, _ in tr.ops)
+    assert tr.launch_ns == [None] * len(tr.ops)
 
 
 def test_readers_on_hand_made_spans():

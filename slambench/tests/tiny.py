@@ -1,6 +1,7 @@
 """A tiny cell for the CPU tests: the two configurations cut to CPU sizes
 (2,048-row clouds of 8,192 raw points, a 512 x 512 grid, short windows),
-written as the harness's own files into a directory of the test's."""
+and the fidelity one with the upstream's k = 20 k-NN normals, written as
+the harness's own files into a directory of the test's."""
 
 from __future__ import annotations
 
@@ -33,10 +34,20 @@ def _tiny(cfg):
         grid=C.OccupancyGridConfig(grid_dim=512))
 
 
+def _fidelity():
+    return _tiny(C.fidelity_mode(C.slice_config()).replace(host_voxelize=False))
+
+
+def _upstream():
+    cfg = _fidelity()
+    return cfg.replace(normal_method="knn",
+                       icp=dataclasses.replace(cfg.icp, normal_k=20))
+
+
 CONFIGS = {
     "tiny-fast": lambda: _tiny(C.slice_config()),
-    "tiny-fidelity": lambda: _tiny(C.fidelity_mode(C.slice_config())
-                                   .replace(host_voxelize=False)),
+    "tiny-fidelity": _fidelity,
+    "tiny-upstream": _upstream,
 }
 
 

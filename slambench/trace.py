@@ -1,7 +1,16 @@
 """The device trace of a traced run: ``torch.profiler`` with CUDA activity
 over one drive, reduced to the device's operations (kernels, copies, sets)
-as ``(name, start_ns, end_ns)`` on the profiler's clock, and the offset that
-maps the benchmark's ``perf_counter`` spans onto that clock."""
+as ``(name, start_ns, end_ns)`` on the profiler's clock, the start of the
+CUDA runtime call that launched each (``launch_ns``), and the offset that
+maps the benchmark's ``perf_counter`` spans onto that clock.
+
+The profiler takes the runtime calls' times on the host, and they agree
+with ``perf_counter`` through ``offset_ns`` to well under a microsecond
+(each K1/K2 runtime call lies inside the port's ``launch`` span around it,
+on the H100). The device's timestamps do not: they drift against the host
+by milliseconds within one drive, with steps of up to 3 ms. So a device
+operation is put on the host's clock by its launch, paired by the
+profiler's correlation id."""
 
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import torch
 class DeviceTrace:
     activities: tuple = ("cuda",)
     ops: list = field(default_factory=list)     # (name, start_ns, end_ns)
+    launch_ns: list = field(default_factory=list)   # an op's launch, or None
     t0: float = 0.0                             # perf_counter at start / stop
     t1: float = 0.0
     offset_ns: int = 0          # profiler clock ns = perf_counter ns + offset
@@ -36,7 +46,7 @@ class DeviceTrace:
         self.t1 = time.perf_counter()
         self._prof.__exit__(*exc)
         device = "cpu" in self.activities and "cuda" not in self.activities
-        self.ops = device_ops(self._prof, cpu=device)
+        self.ops, self.launch_ns = device_ops(self._prof, cpu=device)
         self._prof = None
         return False
 
@@ -45,20 +55,27 @@ class DeviceTrace:
         return self.t1 - self.t0
 
 
-def device_ops(prof, cpu: bool = False) -> list:
+def device_ops(prof, cpu: bool = False) -> tuple:
     """``(name, start_ns, end_ns)`` of every operation that ran on the
-    device (CPU operations instead where ``cpu``, which is how the tests
-    exercise this on a host without a card)."""
+    device, sorted by start (CPU operations instead where ``cpu``, which is
+    how the tests exercise this on a host without a card); and beside each
+    the start of the CUDA runtime call (``cudaLaunchKernel``,
+    ``cudaMemcpyAsync``, ``cuLaunchKernel``, ...) whose correlation id it
+    shares, on the profiler's clock, or None where there is no such call
+    (every operation where ``cpu``)."""
     want = "CPU" if cpu else "CUDA"
-    out = []
+    out, runtime = [], {}
     for e in prof.profiler.kineto_results.events():
-        if str(e.device_type()).split(".")[-1] != want:
+        kind, name = str(e.device_type()).split(".")[-1], e.name()
+        if kind == "CPU" and name.startswith("cu") and not cpu:
+            runtime[e.correlation_id()] = int(e.start_ns())
+        if kind != want or (cpu and name.startswith("cuda")):
             continue
-        if cpu and e.name().startswith("cuda"):
-            continue
-        out.append((e.name(), int(e.start_ns()), int(e.end_ns())))
+        out.append((name, int(e.start_ns()), int(e.end_ns()),
+                    None if cpu else e.correlation_id()))
     out.sort(key=lambda x: x[1])
-    return out
+    return ([(n, a, b) for n, a, b, _ in out],
+            [runtime.get(c) if c is not None else None for *_, c in out])
 
 
 def busy_ns(ops: list) -> int:

@@ -73,6 +73,12 @@ def _chunk(n: int, requested: int) -> int:
     return c
 
 
+def knn_chunk(T: int, k: int, chunk: int = 2048) -> int:
+    """The target columns of each chunk that :func:`knn` streams over ``T``
+    target rows: the largest divisor of ``T`` up to ``max(chunk, k)``."""
+    return _chunk(T, max(chunk, k))
+
+
 _INF_KEY = 0x7F800000 << 32  # _keys(+inf, 0)
 
 
@@ -109,14 +115,14 @@ def knn(
     (..., T) with equal leading dims (each lane searches its own target) ->
     ``(idx (..., S, k) int32, dist2 (..., S, k))``, nearest first.
 
-    Streams ``_chunk(T, max(chunk, k))``-column target chunks and merges each
+    Streams ``knn_chunk(T, k, chunk)``-column target chunks and merges each
     into a running per-row top-k of ``[best, chunk]`` candidates, as
     ``lidar_slam_tpu.ops.knn.knn(exact=True)``; equal distances keep the
     lower target index (``lax.top_k``'s rule). Its matmuls are full f32
     whatever the caller's TF32 setting."""
     tgt = mask_points(tgt, tgt_mask)
     T = tgt.shape[-2]
-    c = _chunk(T, max(chunk, k))
+    c = knn_chunk(T, k, chunk)
     src_sq = torch.sum(src * src, dim=-1)
     # k candidates at +inf, index 0 (the JAX accumulator's start): a chunk
     # may hold fewer than k columns (a prime T leaves c = 1)

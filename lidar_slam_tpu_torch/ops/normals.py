@@ -28,7 +28,8 @@ import math
 
 import torch
 
-from .knn import knn, sq_dist
+from ..utils import tracing
+from .knn import knn, knn_chunk, sq_dist
 
 _EPS = 1e-12
 _CHUNK_ELEMS = 1 << 26  # distance-block elements per chunk of tiles
@@ -100,8 +101,15 @@ def estimate_normals(pts: torch.Tensor, mask: torch.Tensor, k: int = 20,
     on its own): the k nearest valid points (self included), the covariance
     of the valid ones about their centroid, the smallest eigenvector
     flipped to +z; (0, 0, 1) for rows with fewer than 3 valid neighbours and
-    for invalid rows."""
-    idx, _ = knn(pts, pts, mask, k=k, chunk=chunk)
+    for invalid rows.
+
+    Traced: the search is a ``knn`` span inside the caller's (the engine's
+    ``normals``), and ``normals.knn_chunks`` counts the target chunks it
+    streams."""
+    with tracing.span("knn"):
+        idx, _ = knn(pts, pts, mask, k=k, chunk=chunk)
+    N = pts.shape[-2]
+    tracing.count("normals.knn_chunks", N // knn_chunk(N, k, chunk))
     nbr = _take_rows(pts, idx)                                   # (..., N, k, 3)
     w = _take_rows(mask[..., None].to(pts.dtype), idx)[..., 0]   # (..., N, k)
     cnt = torch.sum(w, dim=-1)

@@ -660,21 +660,25 @@ def run_engine(scans, gt, dev):
 
 def kernels() -> tuple:
     """The hand-written kernels, whose launches every phase counts: K1 and
-    K2 (``csrc/knn.cu``) and ``icp_step`` (``csrc/icp_step.cu``)."""
-    from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda
+    K2 (``csrc/knn.cu``), ``icp_step`` (``csrc/icp_step.cu``) and
+    ``knn_topk`` (``csrc/knn_topk.cu``)."""
+    from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda, knn_topk_cuda
 
-    return knn_cuda.KERNELS + icp_cuda.KERNELS
+    return knn_cuda.KERNELS + icp_cuda.KERNELS + knn_topk_cuda.KERNELS
 
 
 def launch_shape(name: str, args) -> str:
     """A launch's shape from its C arguments: ``LxSxT`` for K2
     (``lst_nn1(src, soa, lanes, S, T, ...)``, T padded to the tile),
     ``LxSxTwW`` for K1 (``lst_match_slab(src, lanes, S, tgt8, T, ...)``,
-    the window ``W`` at argument 10) and ``LxN`` (lanes x source rows) for
-    ``icp_step`` (``lst_icp_step(&args, stream)``, every mode); the kernel
+    the window ``W`` at argument 10), ``LxN`` (lanes x source rows) for
+    ``icp_step`` (``lst_icp_step(&args, stream)``, every mode) and ``LxNkK``
+    for ``knn_topk`` (``lst_knn_topk(pts, lanes, N, k, ...)``); the kernel
     rows' ``shape``."""
     if name == "match_slab":
         return f"{args[1]}x{args[2]}x{args[4]}w{args[10]}"
+    if name == "knn_topk":
+        return f"{args[1]}x{args[2]}k{args[3]}"
     if name == "icp_step":
         a = args[0].contents
         return f"{a.lanes}x{a.rows}"
@@ -714,17 +718,20 @@ class KernelShapes:
     keeps a copy of the first inputs K2 was given at each launch shape
     (``inputs[shape] = (src, tgt, mask)``, lanes first), and of the first
     ``icp_step`` launch other than ``apply`` at each of its shapes
-    (``icp_inputs[shape]``, ``icp_snapshot``), so that a shape no kernel
-    row covers yet can be measured on the main path's own data
-    (``missing_k2_rows``, ``icp_step_rows``)."""
+    (``icp_inputs[shape]``, ``icp_snapshot``) and of ``knn_topk``'s first
+    inputs at each of its shapes (``topk_inputs[shape] = (pts, mask, k)``),
+    so that a shape no kernel row covers yet can be measured on the main
+    path's own data (``missing_k2_rows``, ``icp_step_rows``,
+    ``knn_topk_rows``)."""
 
     def __init__(self):
         self.shapes = {k.name: {} for k in kernels()}
         self.inputs = {}
         self.icp_inputs = {}
+        self.topk_inputs = {}
 
     def __enter__(self):
-        from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda
+        from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda, knn_topk_cuda
 
         self._orig = {k: k.launch for k in kernels()}
         for k in kernels():
@@ -763,15 +770,28 @@ class KernelShapes:
             icp_launch(mode, st, cur, src=src, mask=mask, match=match)
 
         icp_cuda.launch = spy_icp_launch
+        self._topk = topk = knn_topk_cuda._knn_topk_cuda
+        topk_inputs = self.topk_inputs
+
+        def spy_topk(pts, mask, k):
+            N = pts.shape[-2]
+            p, m = pts.reshape(-1, N, 3), mask.reshape(-1, N)
+            key = f"{p.shape[0]}x{N}k{k}"
+            if key not in topk_inputs:
+                topk_inputs[key] = (p.clone(), m.clone(), k)
+            return topk(pts, mask, k)
+
+        knn_topk_cuda._knn_topk_cuda = spy_topk
         return self
 
     def __exit__(self, *exc):
-        from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda
+        from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda, knn_topk_cuda
 
         for k, orig in self._orig.items():
             k.launch = orig
         knn_cuda._nn1_prepare_cuda = self._prepare
         icp_cuda.launch = self._icp_launch
+        knn_topk_cuda._knn_topk_cuda = self._topk
 
 
 class RunSpy(KernelShapes):
@@ -1437,7 +1457,7 @@ def check_modules(ring_dirs, corridor, dev):
     import numpy as np
     import torch
 
-    from lidar_slam_tpu_torch.ops import grid_nn, knn_cuda, slab_nn
+    from lidar_slam_tpu_torch.ops import grid_nn, knn_cuda, knn_topk_cuda, slab_nn
     from lidar_slam_tpu_torch.ops import knn as knn_mod
     from lidar_slam_tpu_torch.ops import scan_context as sc
     from lidar_slam_tpu_torch.ops.normals import estimate_normals
@@ -1463,6 +1483,10 @@ def check_modules(ring_dirs, corridor, dev):
         pts[: len(v)] = v
         return torch.from_numpy(pts), torch.from_numpy(np.arange(pad) < len(v))
 
+    # the corridor cloud's search first: the 1 x 32,768 launch's kernel row
+    # (knn_topk_rows, on the first inputs at a shape) then measures a frame
+    # the size of the main path's, not a ring cloud's ~9,000 rows
+    knn_topk_cuda.knn_topk(*(x.to(dev) for x in padded(corridor[0])), K)
     res = {}
     for name, tgt_np, src_np in clouds:
         n = len(tgt_np)
@@ -1541,6 +1565,11 @@ def check_modules(ring_dirs, corridor, dev):
         lambda: estimate_normals(ring_pts, ring_mask, k=K), reps=5)
     res["ms/knn_normals@32768"] = time_ms(
         lambda: estimate_normals(cor_pts, cor_mask, k=K), reps=5)
+    # the k-NN search over two ring lanes in one launch
+    lanes = [padded(clouds[i][1], 16384) for i in (0, 1)]
+    two = [torch.stack(x).to(dev) for x in zip(*lanes)]
+    res["ms/knn_topk@2x16384"] = time_ms(
+        lambda: knn_topk_cuda.knn_topk(*two, K), reps=5)
     s_pts, s_mask = padded(clouds[3][2])
     s_pts = torch.where(s_mask[:, None], s_pts, torch.full_like(s_pts, 1.0e6))
     src = PointCloud(s_pts, s_mask).subsample(4096).points.to(dev)
@@ -2227,6 +2256,95 @@ def icp_step_rows(results, runs, rates) -> list:
     return rows
 
 
+def ptxas_usage(log: str) -> dict:
+    """``{list length K: "N registers, S bytes spill stores, L bytes spill
+    loads"}`` of each ``knn_topk_kernel<K>`` in an nvcc ``-Xptxas=-v`` log
+    (``knn_topk_cuda.build_log``; where this process loaded a library built
+    before, ``csrc/knn_topk.cu`` compiled again into a scratch directory)."""
+    import re
+
+    if not log:
+        from lidar_slam_tpu_torch.ops import knn_cuda, knn_topk_cuda
+
+        with tempfile.TemporaryDirectory() as tmp:
+            r = subprocess.run(
+                [knn_cuda._nvcc(), *knn_cuda.NVCC_FLAGS, "-o",
+                 os.path.join(tmp, "t.so"), str(knn_topk_cuda.KERNEL_SOURCE)],
+                capture_output=True, text=True, timeout=600)
+        log = r.stdout + r.stderr
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*knn_topk_kernelILi(\d+)E", ln)
+        if m:
+            key = int(m.group(1))
+        elif key is not None and "spill" in ln:
+            out.setdefault(key, []).append(ln.split(":", 1)[-1].strip())
+        elif key is not None and "registers" in ln:
+            out.setdefault(key, []).append(
+                re.search(r"Used \d+ registers", ln).group(0))
+            key = None
+    return {k: ", ".join(v) for k, v in out.items()}
+
+
+def knn_topk_row(pts, mask, k, phase, rates, what) -> dict:
+    """``knn_topk`` at one launch shape, (L, N, 3) points: exact against its
+    plain version (indices and distances equal), its time (a CUDA-event
+    loop of the whole call: masking and the launch), the plain version's,
+    the ATen route that ``knn.knn`` runs (the library yardstick: full-f32
+    matmuls, int64 keys, ``torch.topk``), its bound and ptxas's registers
+    and spill for its list length. The bound counts the distances this
+    input needs: every valid row against every valid row of its lane. The
+    JSON row, ``knn_topk@LxNkK``."""
+    import torch
+
+    from lidar_slam_tpu_torch.ops import knn, knn_topk_cuda
+
+    got = knn_topk_cuda.knn_topk(pts, mask, k)
+    want = knn_topk_cuda.knn_topk_torch(pts, mask, k)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        check(x.shape == y.shape and torch.equal(x, y),
+              f"knn_topk ({what}) differs from the plain version")
+    ms = time_ms(lambda: knn_topk_cuda.knn_topk(pts, mask, k), reps=10)
+    pms = time_ms(lambda: knn_topk_cuda.knn_topk_torch(pts, mask, k), reps=2)
+    lms = time_ms(lambda: knn.knn(pts, pts, mask, k=k), reps=2)
+    L, N = pts.shape[0], pts.shape[1]
+    valid = mask.sum(dim=1).double()
+    b, by = bound_ms(int((valid * valid).sum()), _nbytes(pts, mask, *got), rates)
+    K = knn_topk_cuda.list_length(k)
+    usage = ptxas_usage(knn_topk_cuda.build_log).get(K, "not in this build's log")
+    n_split, tiles_per = knn_topk_cuda.plan(
+        L, N, rates["sms"] * knn_topk_cuda._blocks_per_sm(pts.device, k))
+    shape = f"{L}x{N}k{k}"
+    log(f"[kernels] knn_topk {shape} ({what}; {int(valid.sum())} valid rows): "
+        f"exact (idx, d2); plan {n_split} splits x {tiles_per} tiles; kernel "
+        f"{ms:.4f} ms, bound {b:.4f} ms ({by}), plain {pms:.4f} ms, knn.knn "
+        f"{lms:.4f} ms; ptxas (K = {K}): {usage}")
+    return dict(
+        name=f"knn_topk@{shape}", route="cuda",
+        source="lidar_slam_tpu_torch/csrc/knn_topk.cu",
+        replaces=knn_topk_cuda.KNN_TOPK.replaces, max_abs_err=0.0, ms=ms,
+        plain_ms=pms, bound_ms=b, bound_by=by, library_ms=lms, ptxas=usage,
+        shape=shape, phase=phase,
+    )
+
+
+def knn_topk_rows(results, runs, rates) -> list:
+    """A ``knn_topk`` row for each of its launch shapes in ``runs``, on the
+    first inputs the path gave it there, counted in the first phase that
+    launched it."""
+    have = {r["name"] for r in results}
+    rows = []
+    for tag, run in runs.items():
+        for shape, (pts, mask, k) in run["spy"].topk_inputs.items():
+            if f"knn_topk@{shape}" in have:
+                continue
+            rows.append(knn_topk_row(pts, mask, k, tag, rates,
+                                     f"{tag}'s own inputs"))
+            have.add(f"knn_topk@{shape}")
+    return rows
+
+
 def count_launches(results, runs) -> None:
     """Give each kernel row its launches by phase at the row's launch shape
     (``runs``: phase -> its ``launches`` and ``spy``); ``launches`` is the
@@ -2265,7 +2383,7 @@ def main() -> int:
     pkg = os.path.dirname(os.path.abspath(lidar_slam_tpu_torch.__file__))
     check(os.path.dirname(pkg) == HERE,
           f"run from the repository root (found the package at {pkg})")
-    from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda
+    from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda, knn_topk_cuda
 
     dev = torch.device("cuda:0")
     smi = nvidia_smi()
@@ -2276,11 +2394,13 @@ def main() -> int:
     t0 = time.perf_counter()
     knn_cuda.load_library()
     icp_cuda.load_library()
+    knn_topk_cuda.load_library()
     ptxas = [ln.strip() for ln in
-             (knn_cuda.build_log + icp_cuda.build_log).splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             (knn_cuda.build_log + icp_cuda.build_log
+              + knn_topk_cuda.build_log).splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     log(f"[build] {time.perf_counter() - t0:.2f} s -> {knn_cuda.library_path()}"
-        f", {icp_cuda.library_path()}"
+        f", {icp_cuda.library_path()}, {knn_topk_cuda.library_path()}"
         + "".join(f"\n  {ln}" for ln in ptxas))
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2315,7 +2435,10 @@ def main() -> int:
             f"waited {time.perf_counter() - t0:.1f} s here)")
         results += check_ring_kernels(ring_dirs, dev)
         rings = run_rings(ring_dirs, dev)
-        check_modules(ring_dirs, corridor, dev)
+        with KernelShapes() as mod_spy:
+            check_modules(ring_dirs, corridor, dev)
+        modules = dict(spy=mod_spy, launches={
+            name: sum(c.values()) for name, c in mod_spy.shapes.items()})
 
         devs = shard_devices(SHARDS)
         dense, dense_gt = render_dense()
@@ -2346,9 +2469,11 @@ def main() -> int:
             **{tag: rings[tag] for tag in ("cli-rings-knn", "rings-engine",
                                            "rings-batch",
                                            "rings-batch-singles")},
-            "sharded-dense": sharded, "dryrun": dry, **modes}
+            "sharded-dense": sharded, "dryrun": dry, **modes,
+            "modules": modules}
     results += missing_k2_rows(results, runs, card_rates(dev))
     results += icp_step_rows(results, runs, card_rates(dev))
+    results += knn_topk_rows(results, runs, card_rates(dev))
     count_launches(results, runs)
     print(json.dumps({"kernels": results}))
     print(smi)

@@ -16,10 +16,11 @@ window) distance block stays bounded. This is plain PyTorch, not a kernel;
 the x-slab sweeps are the next candidate for a hand-written one.
 
 ``estimate_normals`` is the reference-shaped k-NN PCA (``normal_method=
-"knn"``): the exact k nearest neighbours (``ops/knn.knn``), their covariance
-about the centroid, the smallest eigenvector. ``stride > 1`` (radius and
-adaptive) computes the normals of every stride-th row and repeats each one
-over the skipped rows.
+"knn"``): the exact k nearest neighbours (``ops/knn_topk_cuda.knn_topk``:
+one kernel launch on the card, its plain version on the CPU), their
+covariance about the centroid, the smallest eigenvector. ``stride > 1``
+(radius and adaptive) computes the normals of every stride-th row and
+repeats each one over the skipped rows.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import math
 import torch
 
 from ..utils import tracing
-from .knn import knn, knn_chunk, sq_dist
+from .knn import knn_chunk, sq_dist
+from .knn_topk_cuda import knn_topk
 
 _EPS = 1e-12
 _CHUNK_ELEMS = 1 << 26  # distance-block elements per chunk of tiles
@@ -103,13 +105,20 @@ def estimate_normals(pts: torch.Tensor, mask: torch.Tensor, k: int = 20,
     flipped to +z; (0, 0, 1) for rows with fewer than 3 valid neighbours and
     for invalid rows.
 
-    Traced: the search is a ``knn`` span inside the caller's (the engine's
-    ``normals``), and ``normals.knn_chunks`` counts the target chunks it
-    streams."""
+    The search ranks the difference-form distance, ties to the lower index
+    (``knn_topk``; the JAX package ranks its matrix form, so a row whose
+    k-th and (k+1)-th neighbours lie within its rounding may take the
+    other). Traced: the search is a ``knn`` span inside the caller's (the
+    engine's ``normals``); ``normals.knn_kernel`` counts its kernel calls on
+    the card, ``normals.knn_chunks`` the target chunks the plain version
+    streams on the CPU."""
     with tracing.span("knn"):
-        idx, _ = knn(pts, pts, mask, k=k, chunk=chunk)
-    N = pts.shape[-2]
-    tracing.count("normals.knn_chunks", N // knn_chunk(N, k, chunk))
+        idx, _ = knn_topk(pts, mask, k, chunk)
+    if pts.is_cuda:
+        tracing.count("normals.knn_kernel")
+    else:
+        N = pts.shape[-2]
+        tracing.count("normals.knn_chunks", N // knn_chunk(N, k, chunk))
     nbr = _take_rows(pts, idx)                                   # (..., N, k, 3)
     w = _take_rows(mask[..., None].to(pts.dtype), idx)[..., 0]   # (..., N, k)
     cnt = torch.sum(w, dim=-1)

@@ -2259,17 +2259,19 @@ def icp_step_rows(results, runs, rates) -> list:
 def ptxas_usage(log: str) -> dict:
     """``{list length K: "N registers, S bytes spill stores, L bytes spill
     loads"}`` of each ``knn_topk_kernel<K>`` in an nvcc ``-Xptxas=-v`` log
-    (``knn_topk_cuda.build_log``; where this process loaded a library built
-    before, ``csrc/knn_topk.cu`` compiled again into a scratch directory)."""
+    (``knn_topk_cuda.LIBRARY.build_log``; where this process loaded a
+    library built before, ``csrc/knn_topk.cu`` compiled again into a scratch
+    directory)."""
     import re
 
     if not log:
-        from lidar_slam_tpu_torch.ops import knn_cuda, knn_topk_cuda
+        from lidar_slam_tpu_torch.ops import cuda_lib, knn_topk_cuda
 
         with tempfile.TemporaryDirectory() as tmp:
             r = subprocess.run(
-                [knn_cuda._nvcc(), *knn_cuda.NVCC_FLAGS, "-o",
-                 os.path.join(tmp, "t.so"), str(knn_topk_cuda.KERNEL_SOURCE)],
+                [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-o",
+                 os.path.join(tmp, "t.so"),
+                 str(knn_topk_cuda.LIBRARY.source)],
                 capture_output=True, text=True, timeout=600)
         log = r.stdout + r.stderr
     out, key = {}, None
@@ -2312,7 +2314,8 @@ def knn_topk_row(pts, mask, k, phase, rates, what) -> dict:
     valid = mask.sum(dim=1).double()
     b, by = bound_ms(int((valid * valid).sum()), _nbytes(pts, mask, *got), rates)
     K = knn_topk_cuda.list_length(k)
-    usage = ptxas_usage(knn_topk_cuda.build_log).get(K, "not in this build's log")
+    usage = ptxas_usage(knn_topk_cuda.LIBRARY.build_log).get(
+        K, "not in this build's log")
     n_split, tiles_per = knn_topk_cuda.plan(
         L, N, rates["sms"] * knn_topk_cuda._blocks_per_sm(pts.device, k))
     shape = f"{L}x{N}k{k}"
@@ -2383,24 +2386,23 @@ def main() -> int:
     pkg = os.path.dirname(os.path.abspath(lidar_slam_tpu_torch.__file__))
     check(os.path.dirname(pkg) == HERE,
           f"run from the repository root (found the package at {pkg})")
-    from lidar_slam_tpu_torch.ops import icp_cuda, knn_cuda, knn_topk_cuda
+    from lidar_slam_tpu_torch.ops import (cuda_lib, icp_cuda, knn_cuda,
+                                          knn_topk_cuda)
 
     dev = torch.device("cuda:0")
     smi = nvidia_smi()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; device "
         f"{torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}); "
-        f"nvcc: {nvcc_version(knn_cuda._nvcc())}; nvidia-smi: {smi}")
+        f"nvcc: {nvcc_version(cuda_lib.nvcc())}; nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    knn_cuda.load_library()
-    icp_cuda.load_library()
-    knn_topk_cuda.load_library()
-    ptxas = [ln.strip() for ln in
-             (knn_cuda.build_log + icp_cuda.build_log
-              + knn_topk_cuda.build_log).splitlines()
+    libs = [m.LIBRARY for m in (knn_cuda, icp_cuda, knn_topk_cuda)]
+    for lib in libs:
+        lib.load()
+    ptxas = [ln.strip() for lib in libs for ln in lib.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    log(f"[build] {time.perf_counter() - t0:.2f} s -> {knn_cuda.library_path()}"
-        f", {icp_cuda.library_path()}, {knn_topk_cuda.library_path()}"
+    log(f"[build] {time.perf_counter() - t0:.2f} s -> "
+        + ", ".join(str(lib.path) for lib in libs)
         + "".join(f"\n  {ln}" for ln in ptxas))
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")

@@ -16,13 +16,13 @@ and then updates only the lanes still active, so a converged or inactive
 lane stays frozen exactly as under ``vmap``; the loop ends when no lane is
 active.
 
-On CUDA tensors the arithmetic of each iteration after the correspondence
-search is one launch of ``icp_step`` (``ops/icp_cuda.py``,
-``csrc/icp_step.cu``): the plane error, the convergence test, the 6 x 6
-solve, the SE(3) update and the bookkeeping of every lane, and the flag the
-host reads once an iteration. On CPU tensors the loop is the eager code of
-:func:`_icp_plain`; :func:`icp_step_torch` is the kernel's contract in the
-same eager code.
+The arithmetic of each iteration after the correspondence search is one
+``icp_step`` launch (``ops/icp_cuda.py``, ``csrc/icp_step.cu``): the plane
+error, the convergence test, the 6 x 6 solve, the SE(3) update and the
+bookkeeping of every lane, and the flag the host reads once an iteration.
+The loop is the same on every device; the launch comes from the tensors'
+device (``cuda_lib.use_kernel``): the kernel for CUDA tensors, its plain
+version :func:`icp_step_torch` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import torch
 from ..config import ICPConfig
 from ..types import ICPResult, PointCloud, strided_prefix_idx
 from ..utils import tracing
-from . import icp_cuda, knn_cuda, se3
+from . import cuda_lib, icp_cuda, knn_cuda, se3
 from .linalg import solve_psd_small
 from .normals import estimate_normals
 
@@ -158,11 +158,11 @@ def icp_step_torch(mode: str, st: icp_cuda.IcpState, cur: torch.Tensor,
     """Plain version of the ``icp_step`` kernel (``icp_cuda.launch``, same
     arguments), in place on ``st``: ``apply`` writes ``cur = T src``;
     ``coarse`` composes every lane with its Gauss-Newton step; ``step`` is
-    one iteration of :func:`_icp_plain`'s loop (recording a converging
-    lane's error as its final one too) and writes ``st.flags``; ``final``
-    writes ``st.err``: the plane error of the lanes that need the final
-    pass and the last iteration's of the others (of every lane, for a state
-    without a loop)."""
+    the arithmetic of one iteration of :func:`_icp_loop` (recording a
+    converging lane's error as its final one too) and writes ``st.flags``;
+    ``final`` writes ``st.err``: the plane error of the lanes that need the
+    final pass and the last iteration's of the others (of every lane, for a
+    state without a loop)."""
     if mode == "apply":
         cur.copy_(se3.apply(st.T, src))
         return
@@ -201,16 +201,13 @@ def icp_step_torch(mode: str, st: icp_cuda.IcpState, cur: torch.Tensor,
         (~(st.converged & (st.it > 0))).any()]).to(torch.int32))
 
 
-def _coarse_plain(T, src: PointCloud, match, iterations: int, damping: float):
-    for _ in range(iterations):
-        cur = se3.apply(T, src.points)
-        matched, nrm = _rows(match(cur))
-        delta = solve_point_to_plane(cur, matched, nrm, src.mask, damping)
-        T = lane_compose(delta, T)
-    return T
+def _launch_for(t: torch.Tensor):
+    """The ``icp_step`` launch for ``t``'s device: the kernel for CUDA
+    tensors, its plain version for CPU tensors."""
+    return icp_cuda.launch if cuda_lib.use_kernel(t) else icp_step_torch
 
 
-def _coarse_fused(st, src: PointCloud, match, iterations: int, launch):
+def _coarse_passes(st, src: PointCloud, match, iterations: int, launch):
     cur = torch.empty(src.points.shape, dtype=src.points.dtype,
                       device=src.points.device)
     for _ in range(iterations):
@@ -224,22 +221,14 @@ def coarse_icp(T: torch.Tensor, src: PointCloud, match, iterations: int,
     """``iterations`` coarse Gauss-Newton passes from ``T`` (B, 4, 4) for
     the B-lane source ``src``, every lane composing (no convergence test),
     then each lane's plane RMS error at the result: ``(T, err)``. ``match``
-    as :func:`_matcher` makes it. On CUDA tensors a pass is two ``icp_step``
-    launches (``apply``, ``coarse``) around the search and the error two
-    more (``apply``, ``final``); on CPU tensors it is the eager code of the
-    JAX package's coarse body. ``launch``: run the fused path with this
-    launch (on CUDA tensors it is the kernel's)."""
-    if launch is None and not knn_cuda._is_cuda(src.points):
-        T = _coarse_plain(T, src, match, iterations, damping)
-        cur = se3.apply(T, src.points)
-        matched, nrm = _rows(match(cur))
-        w = src.mask.to(cur.dtype)
-        denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)
-        return T, _plane_error(cur, matched, nrm, w, denom)
-    launch = launch or icp_cuda.launch
+    as :func:`_matcher` makes it. A pass is two ``icp_step`` launches
+    (``apply``, ``coarse``) around the search and the error two more
+    (``apply``, ``final``); ``launch`` (a test seam) replaces the one the
+    tensors' device picks."""
+    launch = launch or _launch_for(src.points)
     st = icp_cuda.new_state(T.clone(memory_format=torch.contiguous_format),
                             damping)
-    cur = _coarse_fused(st, src, match, iterations, launch)
+    cur = _coarse_passes(st, src, match, iterations, launch)
     launch("apply", st, cur, src=src.points)
     launch("final", st, cur, mask=src.mask, match=match(cur))
     return st.T, st.err
@@ -281,8 +270,8 @@ def icp_point_to_plane(
 
 def _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn, inactive,
          launch=None):
-    """:func:`icp_point_to_plane`; ``launch``: run the fused loop with this
-    ``icp_step`` launch (on CUDA tensors it is the kernel's)."""
+    """:func:`icp_point_to_plane`; ``launch`` (a test seam) replaces the
+    ``icp_step`` launch that the tensors' device picks."""
     batched = tgt.points.dim() == 3
     if not batched:
         tgt = PointCloud(tgt.points[None], tgt.mask[None])
@@ -325,11 +314,8 @@ def _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn, inactive,
         converged = torch.zeros((B,), dtype=torch.bool, device=device)
     else:
         converged = torch.as_tensor(inactive, device=device).reshape(B).clone()
-    if launch is not None or knn_cuda._is_cuda(tgt.points):
-        res = _icp_fused(src, csrc, match, T, converged, config,
-                         launch or icp_cuda.launch)
-    else:
-        res = _icp_plain(src, csrc, match, T, converged, config)
+    res = _icp_loop(src, csrc, match, T, converged, config,
+                    launch or _launch_for(tgt.points))
     if not batched:
         res = ICPResult(res.transformation[0], res.converged[0],
                         res.num_iterations[0], res.error_history[0],
@@ -337,86 +323,18 @@ def _icp(src, tgt, tgt_normals, config, init_transform, nn1_fn, inactive,
     return res
 
 
-def _icp_plain(src, csrc, match, T, converged, config):
-    if csrc is not None:
-        with tracing.span("coarse"):
-            T = _coarse_plain(T, csrc, match, config.coarse_iterations,
-                              config.solver_damping)
-
-    B, dtype, device = T.shape[0], T.dtype, T.device
-    w = src.mask.to(dtype)
-    denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)
-    max_it = config.max_iterations
-
-    def correspondences(T):
-        cur = se3.apply(T, src.points)
-        matched, nrm = _rows(match(cur))
-        return cur, matched, nrm
-
-    it = torch.zeros((B,), dtype=torch.int32, device=device)
-    prev_err = torch.full((B,), float("inf"), dtype=dtype, device=device)
-    hist = torch.zeros((B, max_it + 1), dtype=dtype, device=device)
-    cur = matched = nrm = torch.zeros_like(src.points)
-    slots = torch.arange(max_it + 1, device=device)
-
-    active = (it < max_it) & ~converged
-    go = tracing.host_read("icp.active", active.any())
-    while go:
-        with tracing.span("iter"):
-            c_cur, c_matched, c_nrm = correspondences(T)
-            err = _plane_error(c_cur, c_matched, c_nrm, w, denom)
-            conv = (err < config.min_error) | (
-                torch.abs(prev_err - err) < config.tolerance
-            )
-            delta = solve_point_to_plane(
-                c_cur, c_matched, c_nrm, src.mask, config.solver_damping
-            )
-            T_new = torch.where(conv[:, None, None], T, lane_compose(delta, T))
-            a = active
-            hist = torch.where(
-                a[:, None] & (slots[None, :] == it[:, None]), err[:, None], hist
-            )
-            T = torch.where(a[:, None, None], T_new, T)
-            prev_err = torch.where(a, err, prev_err)
-            converged = torch.where(a, conv, converged)
-            a3 = a[:, None, None]
-            cur = torch.where(a3, c_cur, cur)
-            matched = torch.where(a3, c_matched, matched)
-            nrm = torch.where(a3, c_nrm, nrm)
-            it = it + a.to(torch.int32)
-            active = (it < max_it) & ~converged
-            go = tracing.host_read("icp.active", active.any())
-
-    # Final error with the final correspondences: reuse the last iteration's
-    # on a converged exit, recompute on budget exhaustion or a zero-iteration
-    # (inactive) start.
-    with tracing.span("final"):
-        need = ~(converged & (it > 0))
-        if tracing.host_read("icp.need", need.any()):
-            f_cur, f_matched, f_nrm = correspondences(T)
-            n3 = need[:, None, None]
-            cur = torch.where(n3, f_cur, cur)
-            matched = torch.where(n3, f_matched, matched)
-            nrm = torch.where(n3, f_nrm, nrm)
-        final_err = _plane_error(cur, matched, nrm, w, denom)
-        hist = torch.where(slots[None, :] == it[:, None], final_err[:, None],
-                           hist)
-
-    return ICPResult(T, converged, it, hist, final_err)
-
-
-def _icp_fused(src, csrc, match, T, converged, config, launch):
-    """:func:`_icp_plain`'s loop with the arithmetic of each iteration in
-    one ``icp_step`` launch (``launch``): an iteration is the ``apply``
-    launch, the search and the ``step`` launch, then one read of the flag
-    that the step wrote. A converged exit's final error is its last
-    iteration's; the final pass runs for the lanes that need it."""
+def _icp_loop(src, csrc, match, T, converged, config, launch):
+    """The ICP loop with the arithmetic of each iteration in one
+    ``icp_step`` launch (``launch``): an iteration is the ``apply`` launch,
+    the search and the ``step`` launch, then one read of the flag that the
+    step wrote. A converged exit's final error is its last iteration's; the
+    final pass runs for the lanes that need it."""
     max_it = config.max_iterations
     st = icp_cuda.new_state(T, config.solver_damping, converged, max_it,
                             config.min_error, config.tolerance)
     if csrc is not None:
         with tracing.span("coarse"):
-            _coarse_fused(st, csrc, match, config.coarse_iterations, launch)
+            _coarse_passes(st, csrc, match, config.coarse_iterations, launch)
 
     cur = torch.empty(src.points.shape, dtype=src.points.dtype,
                       device=src.points.device)
@@ -427,7 +345,6 @@ def _icp_fused(src, csrc, match, T, converged, config, launch):
         with tracing.span("iter"):
             launch("apply", st, cur, src=src.points)
             launch("step", st, cur, mask=src.mask, match=match(cur))
-            tracing.count("icp.fused_iters")
             ran = True
             go = tracing.host_read("icp.active", st.flags[0])
 

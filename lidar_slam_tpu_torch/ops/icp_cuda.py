@@ -19,8 +19,8 @@ The matched rows come either row-aligned (K1's packed output, read through
 its strides) or as an int32 index into the targets (K2), which the kernel
 gathers itself. :func:`launch` checks its operands and launches for CUDA
 tensors; the plain version of the same contract is
-``ops/icp.py:icp_step_torch``. The kernel is compiled with ``csrc/knn.cu``'s
-flags on first use into ``build/kernels/`` and counts its launches
+``ops/icp.py:icp_step_torch``. ``cuda_lib`` builds and loads the kernel's
+library on first use (:data:`LIBRARY`); the kernel counts its launches
 (``ICP_STEP.launches``).
 """
 
@@ -31,15 +31,11 @@ from dataclasses import dataclass
 
 import torch
 
-from . import knn_cuda
+from . import cuda_lib
 
-KERNEL_SOURCE = knn_cuda._PKG / "csrc" / "icp_step.cu"
 MODES = {"apply": 0, "coarse": 1, "step": 2, "final": 3}
 BLOCK_ROWS = 1024   # source rows a block (BLOCK_ROWS in icp_step.cu)
 PART = 32           # floats of a block's partial sums (PART in icp_step.cu)
-
-_lib = None
-build_log = ""
 
 
 class IcpStepArgs(ctypes.Structure):
@@ -66,26 +62,14 @@ class IcpStepArgs(ctypes.Structure):
     ]
 
 
-def library_path():
-    return knn_cuda.library_path(KERNEL_SOURCE, "libicp_step")
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel's library."""
-    global _lib, build_log
-    if _lib is None:
-        lib, build_log = knn_cuda.build(KERNEL_SOURCE, "libicp_step")
-        lib.lst_icp_step.argtypes = [ctypes.POINTER(IcpStepArgs),
-                                     ctypes.c_void_p]
-        lib.lst_icp_step.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-ICP_STEP = knn_cuda.CudaKernel(
+LIBRARY = cuda_lib.Library("icp_step.cu", "libicp_step", {
+    "lst_icp_step": ([ctypes.POINTER(IcpStepArgs), ctypes.c_void_p],
+                     ctypes.c_int),
+})
+ICP_STEP = cuda_lib.CudaKernel(
     "icp_step", "lst_icp_step",
     "lidar_slam_tpu/ops/icp.py:196 (the while-loop body; no Pallas kernel)",
-    library=load_library,
+    LIBRARY,
 )
 KERNELS = (ICP_STEP,)
 
@@ -224,4 +208,4 @@ def launch(mode: str, st: IcpState, cur: torch.Tensor, src=None, mask=None,
             st.part = torch.empty((need,), dtype=torch.float32, device=dev)
             a.part = st.part.data_ptr()
     with torch.cuda.device(dev):
-        ICP_STEP.launch(ctypes.pointer(a), knn_cuda._stream(cur))
+        ICP_STEP.launch(ctypes.pointer(a), cuda_lib.stream(cur))

@@ -13,10 +13,9 @@ CUDA C++ kernels for Hopper in ``lidar_slam_tpu_torch/csrc/knn.cu``:
 Each wrapper runs its kernel for CUDA tensors (or raises) and the plain
 PyTorch version of the same contract (``nn1_torch``, ``nn1_slab_torch``,
 ``match_slab_torch``) for CPU tensors; nothing falls back from one to the
-other. The kernels are compiled with ``nvcc`` for ``sm_90a`` on first use
-into ``build/kernels/`` (keyed on a hash of the source) and loaded with
-ctypes. Each kernel counts its launches (``MATCH_SLAB.launches``,
-``NN1.launches``).
+other (``cuda_lib.use_kernel``). ``cuda_lib`` builds ``knn.cu`` on first use
+and loads it (:data:`LIBRARY`); each kernel counts its launches
+(``MATCH_SLAB.launches``, ``NN1.launches``).
 
 Both searches split a row's candidates over threads and blocks and merge
 the partial minima with a 64-bit key ``(bits(d2) << 32) | index`` under an
@@ -34,137 +33,30 @@ window starts (and window misses), match the TPU kernel's.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass, field
-from pathlib import Path
 
 import torch
 
-from ..utils import tracing
+from . import cuda_lib
 from .knn import SENTINEL, mask_points, sq_dist
 from .knn import nn1 as nn1_torch
 
 _QUANT = 128      # window starts rounded down to multiples of this
 _LUT_BINS = 4096  # quantized x -> target-index lookup resolution
 
-_PKG = Path(__file__).resolve().parents[1]
-KERNEL_SOURCE = _PKG / "csrc" / "knn.cu"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIBRARY = cuda_lib.Library("knn.cu", "libknn", {
+    "lst_nn1": ([_p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p], _i),
+    "lst_match_slab": ([_p, _i, _i, _p, _i, _p, _p, _p, ctypes.c_float, _i,
+                        _i, _i, _i, _p, _p, _p, _p, _p, _p, _p], _i),
+})
+MATCH_SLAB = cuda_lib.CudaKernel(
+    "match_slab", "lst_match_slab", "lidar_slam_tpu/ops/knn_pallas.py:228",
+    LIBRARY,
 )
-
-_lib = None
-build_log = ""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def library_path(source: Path = KERNEL_SOURCE, stem: str = "libknn") -> Path:
-    """Where the shared library built from ``source`` lives (by default the
-    correspondence kernels'): keyed on the source and the flags."""
-    h = hashlib.sha256(source.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
-
-
-def build(source: Path, stem: str) -> tuple[ctypes.CDLL, str]:
-    """Compile ``source`` with nvcc into ``build/kernels/`` (once per source
-    hash; temp name + ``os.replace``) and load it: ``(library, nvcc's
-    output)``, the output empty where the library was built before."""
-    so = library_path(source, stem)
-    log = ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            capture_output=True, text=True,
-        )
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
-    return ctypes.CDLL(str(so)), log
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    lib, build_log = build(KERNEL_SOURCE, "libknn")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lst_nn1.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
-    lib.lst_nn1.restype = i
-    lib.lst_match_slab.argtypes = [p, i, i, p, i, p, p, p, ctypes.c_float, i,
-                                   i, i, i, p, p, p, p, p, p, p]
-    lib.lst_match_slab.restype = i
-    _lib = lib
-    return lib
-
-
-class CudaKernel:
-    """One hand-written kernel: its C entry point in the library that
-    ``library()`` loads (``csrc/knn.cu``'s by default) and its launch
-    count."""
-
-    def __init__(self, name: str, symbol: str, replaces: str,
-                 library=load_library):
-        self.name = name
-        self.symbol = symbol
-        self.replaces = replaces
-        self.library = library
-        self.launches = 0
-
-    def launch(self, *args) -> None:
-        fn = getattr(self.library(), self.symbol)
-        with tracing.launching(self.name):
-            rc = fn(*args)
-        if rc != 0:
-            raise RuntimeError(f"{self.name} launch failed: cudaError {rc}")
-        self.launches += 1
-
-
-MATCH_SLAB = CudaKernel(
-    "match_slab", "lst_match_slab", "lidar_slam_tpu/ops/knn_pallas.py:228"
-)
-NN1 = CudaKernel("nn1", "lst_nn1", "lidar_slam_tpu/ops/knn_pallas.py:41")
+NN1 = cuda_lib.CudaKernel("nn1", "lst_nn1",
+                          "lidar_slam_tpu/ops/knn_pallas.py:41", LIBRARY)
 KERNELS = (MATCH_SLAB, NN1)
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_cuda(*tensors: torch.Tensor, aligned=()) -> None:
-    dev = tensors[0].device
-    for t in tensors + tuple(aligned):
-        if not t.is_cuda or t.device != dev or not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous, on one GPU")
-    for t in aligned:  # read or written as float4
-        if t.data_ptr() % 16:
-            raise ValueError("packed rows must be 16-byte aligned")
-
-
-def _is_cuda(t: torch.Tensor) -> bool:
-    if t.is_cuda:
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {t.device}")
 
 
 def _pad_rows(x: torch.Tensor, multiple: int, value: float) -> torch.Tensor:
@@ -228,11 +120,11 @@ def _nn1_prepare_cuda(tgt: torch.Tensor, tgt_mask: torch.Tensor):
         part, tickets = scratch[S]
         idx = torch.empty((B, S), dtype=torch.int32, device=dev)
         d2 = torch.empty((B, S), dtype=torch.float32, device=dev)
-        _check_cuda(s, part, tickets, idx, d2, aligned=(soa,))
+        cuda_lib.check_operands(s, part, tickets, idx, d2, aligned=(soa,))
         with torch.cuda.device(dev):  # the stream's card (a mesh has several)
             NN1.launch(s.data_ptr(), soa.data_ptr(), B, S, Tp, n_split,
                        tiles_per, part.data_ptr(), tickets.data_ptr(),
-                       idx.data_ptr(), d2.data_ptr(), _stream(s))
+                       idx.data_ptr(), d2.data_ptr(), cuda_lib.stream(s))
         return idx.reshape(*lead, S), d2.reshape(*lead, S)
 
     return query
@@ -242,7 +134,7 @@ def _nn1_prepare(tgt: torch.Tensor, tgt_mask: torch.Tensor):
     """Lay the target out once (mask to the sentinel, SoA planes) and return
     ``query(src) -> (idx, dist2)``: on CUDA tensors every query is one K2
     launch; on CPU tensors it is the plain version."""
-    if _is_cuda(tgt):
+    if cuda_lib.use_kernel(tgt):
         return _nn1_prepare_cuda(tgt, tgt_mask)
     return lambda src: nn1_torch(src, tgt, tgt_mask)
 
@@ -252,7 +144,7 @@ def nn1(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor):
     (..., T) -> ``(idx (..., S) int32, dist2 (..., S))``. All leading-dim
     lanes go through one kernel launch. ``nn1.prepare(tgt, tgt_mask)`` is
     ops/icp.py's protocol for a target that serves several queries."""
-    if _is_cuda(src):
+    if cuda_lib.use_kernel(src):
         return _nn1_prepare_cuda(tgt, tgt_mask)(src)
     return nn1_torch(src, tgt, tgt_mask)
 
@@ -405,15 +297,15 @@ def _slab_query_cuda(src, index: SlabIndex, ts: int, window: int,
             torch.zeros((B, n_tiles), dtype=torch.int32, device=dev),
         )
     part, tickets = index.scratch[plan]
-    _check_cuda(src, index.lut, index.lo, index.inv_h, part, tickets, d2,
-                argm, starts, aligned=(index.tgt8, qn))
+    cuda_lib.check_operands(src, index.lut, index.lo, index.inv_h, part,
+                            tickets, d2, argm, starts, aligned=(index.tgt8, qn))
     with torch.cuda.device(src.device):
         MATCH_SLAB.launch(
             src.data_ptr(), B, S, index.tgt8.data_ptr(), index.padded_T,
             index.lut.data_ptr(), index.lo.data_ptr(), index.inv_h.data_ptr(),
             margin, ts, window, n_chunk, chunk, part.data_ptr(),
             tickets.data_ptr(), qn.data_ptr(), d2.data_ptr(), argm.data_ptr(),
-            starts.data_ptr(), _stream(src),
+            starts.data_ptr(), cuda_lib.stream(src),
         )
     return qn, d2, argm, starts
 
@@ -430,7 +322,8 @@ def _slab_query(src, index: SlabIndex, ts: int, window: int, margin: float,
     ts = min(ts, max(8, src.shape[1]))
     window = min(window, index.padded_T)
     if call is None:
-        call = _slab_query_cuda if _is_cuda(src) else _slab_query_plain
+        call = (_slab_query_cuda if cuda_lib.use_kernel(src)
+                else _slab_query_plain)
     return call(src, index, ts, window, margin)
 
 

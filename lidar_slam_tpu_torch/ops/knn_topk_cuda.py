@@ -10,9 +10,9 @@ of K1, K2 and the benchmark's plain reference, in one launch for every lane.
 
 :func:`knn_topk` runs the kernel for CUDA tensors and its plain PyTorch
 version, :func:`knn_topk_torch`, for CPU tensors; nothing falls back from
-one to the other. The kernel is compiled with ``csrc/knn.cu``'s flags on
-first use into ``build/kernels/`` and counts its launches
-(``KNN_TOPK.launches``).
+one to the other (``cuda_lib.use_kernel``). ``cuda_lib`` builds and loads
+the kernel's library on first use (:data:`LIBRARY`); the kernel counts its
+launches (``KNN_TOPK.launches``).
 """
 
 from __future__ import annotations
@@ -21,42 +21,26 @@ import ctypes
 
 import torch
 
-from . import knn, knn_cuda
+from . import cuda_lib, knn
 
-KERNEL_SOURCE = knn_cuda._PKG / "csrc" / "knn_topk.cu"
 MAX_K = 32      # MAX_K in knn_topk.cu
 ROWS = 256      # query rows a block (THREADS in knn_topk.cu)
 TILE = 1024     # targets a shared-memory tile (TILE in knn_topk.cu)
 PRE = 512       # rows around a block's own that bound its K-th distance
 
-_lib = None
-build_log = ""
 _occupancy: dict = {}   # (device index, list length) -> blocks an SM
 _tickets: dict = {}     # device -> int32 counters the kernel leaves at 0
 
-
-def library_path():
-    return knn_cuda.library_path(KERNEL_SOURCE, "libknn_topk")
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel's library."""
-    global _lib, build_log
-    if _lib is None:
-        lib, build_log = knn_cuda.build(KERNEL_SOURCE, "libknn_topk")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lst_knn_topk.argtypes = [p, i, i, i, i, i, i, p, p, p, p, p, p]
-        lib.lst_knn_topk.restype = i
-        lib.lst_knn_topk_occupancy.argtypes = [i, ctypes.POINTER(i)]
-        lib.lst_knn_topk_occupancy.restype = i
-        _lib = lib
-    return _lib
-
-
-KNN_TOPK = knn_cuda.CudaKernel(
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIBRARY = cuda_lib.Library("knn_topk.cu", "libknn_topk", {
+    "lst_knn_topk": ([_p, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p],
+                     _i),
+    "lst_knn_topk_occupancy": ([_i, ctypes.POINTER(_i)], _i),
+})
+KNN_TOPK = cuda_lib.CudaKernel(
     "knn_topk", "lst_knn_topk",
     "lidar_slam_tpu/ops/knn.py:knn (XLA matmul + lax.top_k; no Pallas kernel)",
-    library=load_library,
+    LIBRARY,
 )
 KERNELS = (KNN_TOPK,)
 
@@ -106,7 +90,7 @@ def _blocks_per_sm(dev: torch.device, k: int) -> int:
     if key not in _occupancy:
         n = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            rc = load_library().lst_knn_topk_occupancy(k, ctypes.byref(n))
+            rc = LIBRARY.load().lst_knn_topk_occupancy(k, ctypes.byref(n))
         if rc != 0 or n.value < 1:
             raise RuntimeError(f"knn_topk occupancy query failed: {rc}")
         _occupancy[key] = n.value
@@ -154,12 +138,12 @@ def _knn_topk_cuda(pts: torch.Tensor, mask: torch.Tensor, k: int):
                    torch.empty((B, n_split, K, N), dtype=torch.int32,
                                device=dev),
                    tickets)
-    knn_cuda._check_cuda(p, idx, d2, *scratch)
+    cuda_lib.check_operands(p, idx, d2, *scratch)
     ptrs = [t.data_ptr() for t in scratch] or [None] * 3
     with torch.cuda.device(dev):
         KNN_TOPK.launch(p.data_ptr(), B, N, k, n_split, tiles_per, PRE,
                         *ptrs, idx.data_ptr(), d2.data_ptr(),
-                        knn_cuda._stream(p))
+                        cuda_lib.stream(p))
     return idx.reshape(*lead, N, k), d2.reshape(*lead, N, k)
 
 
@@ -174,6 +158,6 @@ def knn_topk(pts: torch.Tensor, mask: torch.Tensor, k: int,
     columns) for CPU tensors. Raises for ``k`` outside 1-32 and for other
     shapes, dtypes or devices."""
     _check(pts, mask, k)
-    if knn_cuda._is_cuda(pts):
+    if cuda_lib.use_kernel(pts):
         return _knn_topk_cuda(pts, mask, k)
     return knn_topk_torch(pts, mask, k, chunk)

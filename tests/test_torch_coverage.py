@@ -55,7 +55,7 @@ LEFT_OUT = {
     "ops/df64.py": _DF64,
     "ops/knn_pallas.py:pallas_supported":
         "a probe of the Pallas TPU backend; the port picks the kernel or its "
-        "plain version from the tensor's device (knn_cuda._is_cuda)",
+        "plain version from the tensor's device (cuda_lib.use_kernel)",
     "ops/grid_nn.py:make_grid_corr_fn":
         "make_grid_backend(cell).prepare(tgt, mask) returns the same "
         "prepared-grid closure",

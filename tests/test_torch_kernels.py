@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from lidar_slam_tpu_torch.ops import knn_cuda
+from lidar_slam_tpu_torch.ops import cuda_lib, knn_cuda
 
 torch.set_num_threads(2)
 
@@ -211,10 +211,10 @@ def test_cuda_wrappers_refuse_other_devices():
 
 
 def test_kernel_build_is_keyed_on_the_source():
-    path = knn_cuda.library_path()
-    assert path.parent == knn_cuda.BUILD_DIR
+    path = knn_cuda.LIBRARY.path
+    assert path.parent == cuda_lib.BUILD_DIR
     assert path.name.startswith("libknn_") and path.suffix == ".so"
-    assert knn_cuda.KERNEL_SOURCE.exists()
+    assert knn_cuda.LIBRARY.source.exists()
 
 
 @pytest.mark.gpu
@@ -637,11 +637,11 @@ def _close_T_drive(a, b, scale):
 
 
 @pytest.mark.gpu
-def test_fused_iters_count_every_iteration_on_card(cuda):
+def test_iter_spans_count_every_iteration_on_card(cuda):
     """The engine on the card with tracing on: every ICP loop pass is one
-    ``icp_step`` iteration, so ``icp.fused_iters`` equals the ``iter``
-    spans, each odometry ICP's ``iter`` spans its iteration count, and
-    every ``icp`` span launched ``icp_step``."""
+    ``iter`` span with one ``icp_step`` ``step`` launch, each odometry
+    ICP's ``iter`` spans its iteration count, and every ``icp`` span
+    launched ``icp_step``."""
     from lidar_slam_tpu_torch.config import fast_mode, tiny_config
     from lidar_slam_tpu_torch.models.pipeline import SlamEngine
     from lidar_slam_tpu_torch.utils.dataset import (
@@ -669,9 +669,15 @@ def test_fused_iters_count_every_iteration_on_card(cuda):
     for s in scans:
         eng.push_scan(s)
     m = eng.metrics()
-    spans, counters = m["trace"]["spans"], m["trace"]["counters"]
+    spans = m["trace"]["spans"]
     iters = [s for s in spans if s["name"] == "iter"]
-    assert counters["icp.fused_iters"] == len(iters) > 0
+    assert iters
+    for i, s in enumerate(spans):
+        if s["name"] == "iter":
+            kernels = [t["kernel"] for t in spans
+                       if t["name"] == "launch" and t["parent"] == i]
+            assert kernels in (["icp_step", "match_slab", "icp_step"],
+                               ["icp_step", "nn1", "icp_step"])
     for i, s in enumerate(spans):
         if s["name"] != "icp":
             continue

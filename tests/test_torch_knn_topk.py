@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from lidar_slam_tpu_torch.ops import knn, knn_cuda, knn_topk_cuda, normals
+from lidar_slam_tpu_torch.ops import cuda_lib, knn, knn_topk_cuda, normals
 from lidar_slam_tpu_torch.ops.knn_topk_cuda import knn_topk, knn_topk_torch
 from lidar_slam_tpu_torch.utils import tracing
 from lidar_slam_tpu_torch.utils.dataset import (
@@ -203,10 +203,10 @@ def test_plan_splits_fill_the_card():
 
 
 def test_kernel_build_is_keyed_on_the_source():
-    path = knn_topk_cuda.library_path()
-    assert path.parent == knn_cuda.BUILD_DIR
+    path = knn_topk_cuda.LIBRARY.path
+    assert path.parent == cuda_lib.BUILD_DIR
     assert path.name.startswith("libknn_topk_") and path.suffix == ".so"
-    assert knn_topk_cuda.KERNEL_SOURCE.exists()
+    assert knn_topk_cuda.LIBRARY.source.exists()
 
 
 # --- the kernel, on the card -------------------------------------------------
@@ -323,8 +323,8 @@ def test_kernel_builds_without_spills(cuda, tmp_path):
     """ptxas reports 0 bytes of spill for every instantiation (the list
     lengths 4, 8, 12, 16, 20 and 32)."""
     r = subprocess.run(
-        [knn_cuda._nvcc(), *knn_cuda.NVCC_FLAGS, "-o", str(tmp_path / "t.so"),
-         str(knn_topk_cuda.KERNEL_SOURCE)],
+        [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(tmp_path / "t.so"),
+         str(knn_topk_cuda.LIBRARY.source)],
         capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr
     log = r.stdout + r.stderr

@@ -57,7 +57,6 @@ def main() -> int:
     from lidar_slam_tpu_torch.utils.native import voxel_downsample_host
 
     dev = torch.device("cuda:0")
-    knn_cuda.load_library()
     N, n_frames = 32768, 500
     half = route_half_for(n_frames)
     renderer = ScanRenderer(generate_world(0, route_half=half, corridor=60.0))

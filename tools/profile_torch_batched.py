@@ -57,7 +57,7 @@ def main() -> int:
     from lidar_slam_tpu_torch.utils.native import voxel_downsample_host
 
     dev = torch.device("cuda:0")
-    knn_cuda.load_library()
+    knn_cuda.LIBRARY.load()
     B, n = chip_smoke.BATCH_LANES, chip_smoke.BATCH_FRAMES
     with tempfile.TemporaryDirectory() as work:
         seqs = []
